@@ -1,0 +1,96 @@
+"""Layers shared by the towers, with flax.linen's semantics.
+
+- ``BatchNorm``: statistics in float32 as E[x^2] - E[x]^2 (flax's fast variance),
+  running statistics updated with flax's momentum convention
+  (ra = momentum * ra + (1 - momentum) * batch_stat) and the *biased* batch
+  variance, where torch's own BatchNorm uses the unbiased one. The normalized
+  output is cast to ``out_dtype`` (bf16 under ``bn_bf16``).
+- ``Dropout``: flax's ``where(keep, x / keep_prob, 0)``, drawing its mask from an
+  explicit ``torch.Generator`` when one is set.
+- ``lecun_normal_``: flax's default kernel init (truncated normal, fan-in).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
+    """variance_scaling(1, fan_in, truncated_normal): std = sqrt(1/fan_in) / .8796."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over dim 1 (channels/features) with flax.linen's semantics."""
+
+    def __init__(self, num_features: int, eps: float, momentum: float, out_dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum  # flax convention: weight of the OLD running value
+        self.out_dtype = out_dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float()
+        if self.training:
+            dims = [0] + list(range(2, x.dim()))
+            mean = xf.mean(dims)
+            mean2 = (xf * xf).mean(dims)
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        return y.to(self.out_dtype)
+
+
+class Dropout(nn.Module):
+    """flax.linen.Dropout: keep with probability 1 - rate and scale by 1/keep_prob."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
+
+
+def dense(in_features: int, out_features: int, bias: bool = True, generator=None) -> nn.Linear:
+    """nn.Linear with flax.linen.Dense's init (lecun normal kernel, zero bias)."""
+    lin = nn.Linear(in_features, out_features, bias=bias)
+    lecun_normal_(lin.weight, in_features, generator)
+    if bias:
+        nn.init.zeros_(lin.bias)
+    return lin
+
+
+def conv2d(
+    in_ch: int, out_ch: int, kernel, stride: int = 1, padding=0, groups: int = 1,
+    bias: bool = True, generator=None,
+) -> nn.Conv2d:
+    """nn.Conv2d with flax.linen.Conv's init."""
+    conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding, groups=groups, bias=bias)
+    kh, kw = conv.kernel_size
+    lecun_normal_(conv.weight, in_ch // groups * kh * kw, generator)
+    if bias:
+        nn.init.zeros_(conv.bias)
+    return conv

@@ -1,0 +1,102 @@
+"""VICReg: a shared projector over both towers, and the variance-invariance-covariance loss.
+
+Counterpart of the JAX package's ``models/vicreg.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from inverse_audio_synthesis_tpu_torch.models.layers import BatchNorm, dense
+
+
+def parse_projector_spec(mlp: str, reprdim: int, embeddim: int) -> Tuple[int, ...]:
+    """'8192-8192-%d' % embeddim prefixed with reprdim -> (1024, 8192, 8192, 8192)."""
+    spec = f"{reprdim}-{mlp}" % embeddim
+    return tuple(int(v) for v in spec.split("-"))
+
+
+class Projector(nn.Module):
+    """Linear + BatchNorm (eps 1e-5, flax momentum 0.9) + ReLU per hidden layer,
+    bias-free final Linear."""
+
+    def __init__(self, dims: Sequence[int], bn_dtype=torch.float32, generator=None):
+        super().__init__()
+        dims = tuple(dims)
+        self.n_hidden = len(dims) - 2
+        for i in range(self.n_hidden):
+            self.add_module(f"lin{i}", dense(dims[i], dims[i + 1], generator=generator))
+            self.add_module(f"bn{i}", BatchNorm(dims[i + 1], eps=1e-5, momentum=0.9,
+                                                out_dtype=bn_dtype))
+        self.lin_final = dense(dims[-2], dims[-1], bias=False, generator=generator)
+
+    def forward(self, x):
+        for i in range(self.n_hidden):
+            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"lin{i}")(x)))
+        return self.lin_final(x)
+
+
+class VICRegModule(nn.Module):
+    """Both towers projected through one shared projector."""
+
+    def __init__(self, backbone_audio: nn.Module, backbone_param: nn.Module,
+                 projector_dims: Sequence[int], bn_dtype=torch.float32, generator=None):
+        super().__init__()
+        self.backbone_audio = backbone_audio
+        self.backbone_param = backbone_param
+        self.projector = Projector(projector_dims, bn_dtype=bn_dtype, generator=generator)
+
+    def forward(self, audio, params):
+        x = self.projector(self.backbone_audio(audio))
+        y = self.projector(self.backbone_param(params))
+        return x, y
+
+    def audio_repr(self, audio):
+        return self.backbone_audio(audio)
+
+
+def vicreg_loss(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    sim_coeff: float = 25.0,
+    std_coeff: float = 25.0,
+    cov_coeff: float = 1.0,
+    cov_batch_size: Optional[int] = None,
+    cov_operand_dtype: Optional[torch.dtype] = None,
+):
+    """Returns (loss, repr_loss, std_loss, cov_loss) over the batch, in float32.
+
+    ``cov_batch_size`` reproduces the reference's normalization by its config
+    batch size; ``cov_operand_dtype`` (e.g. bf16) rounds the covariance operands
+    to that type while the products accumulate in float32."""
+    with torch.autocast(device_type=x.device.type, enabled=False):
+        x, y = x.float(), y.float()
+        embeddim = x.shape[-1]
+        n = x.shape[0]
+        repr_loss = torch.mean((x - y) ** 2)
+        x = x - x.mean(dim=0)
+        y = y - y.mean(dim=0)
+        std_x = torch.sqrt(torch.sum(x**2, dim=0) / (n - 1) + 1e-4)
+        std_y = torch.sqrt(torch.sum(y**2, dim=0) / (n - 1) + 1e-4)
+        std_loss = torch.mean(F.relu(1.0 - std_x)) / 2.0 + torch.mean(F.relu(1.0 - std_y)) / 2.0
+
+        denom = (cov_batch_size if cov_batch_size is not None else n) - 1
+        if cov_operand_dtype is not None:
+            xc = x.to(cov_operand_dtype).float()
+            yc = y.to(cov_operand_dtype).float()
+        else:
+            xc, yc = x, y
+        cov_x = (xc.T @ xc) / denom
+        cov_y = (yc.T @ yc) / denom
+
+        def off_diag_sq(c, op):
+            diag = torch.sum(op * op, dim=0) / denom
+            return torch.sum(c**2) - torch.sum(diag**2)
+
+        cov_loss = off_diag_sq(cov_x, xc) / embeddim + off_diag_sq(cov_y, yc) / embeddim
+        loss = sim_coeff * repr_loss + std_coeff * std_loss + cov_coeff * cov_loss
+    return loss, repr_loss, std_loss, cov_loss

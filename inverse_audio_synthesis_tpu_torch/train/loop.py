@@ -1,0 +1,133 @@
+"""The training loop: ``Trainer`` and ``PreemptionGuard``.
+
+Counterpart of the JAX package's ``train/loop.py``: one pass over the
+batch-number stream with ``limit_train_batches``, ``limit_val_batches``,
+``val_check_interval`` and metric logging every ``log_every`` steps. Non-finite
+updates are rejected on the device at every step (train/optim.py); the counter
+and the metrics are fetched, and raised on, only at log cadence, so the loop
+does not wait for the device between log steps. Checkpointing is not in the port
+yet: ``fit`` saves nothing.
+"""
+
+from __future__ import annotations
+
+import math
+import signal
+import threading
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from inverse_audio_synthesis_tpu_torch.train.runsetup import BatchNumberSplit
+
+
+class PreemptionGuard:
+    """Turn SIGTERM/SIGINT into a cooperative stop flag while training. Installs
+    handlers only from the main thread; elsewhere it stays inert."""
+
+    def __init__(self):
+        self.requested: Optional[int] = None
+        self._prev: Dict[int, Any] = {}
+
+    def _handler(self, signum, frame):
+        self.requested = signum
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                self._prev[sig] = signal.signal(sig, self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+        self._prev.clear()
+        return False
+
+
+def _to_float(v) -> float:
+    return float(v.item()) if isinstance(v, torch.Tensor) else float(v)
+
+
+class Trainer:
+    def __init__(
+        self,
+        task,
+        split: BatchNumberSplit,
+        logger=None,
+        limit_train_batches: Optional[int] = None,
+        limit_val_batches: Optional[int] = None,
+        val_check_interval: Optional[int] = None,
+        log_every: int = 50,
+    ):
+        self.task = task
+        self.split = split
+        self.logger = logger
+        self.limit_train_batches = limit_train_batches
+        self.limit_val_batches = limit_val_batches
+        self.val_check_interval = val_check_interval
+        self.log_every = log_every
+        # set by fit(): the signal number that stopped training early, else None
+        self.interrupted: Optional[int] = None
+
+    def _log(self, metrics: Dict[str, Any], step: int):
+        if self.logger is not None:
+            self.logger.log(metrics, step=step)
+
+    def validate(self, state) -> Dict[str, float]:
+        n = min(self.split.sizes.val, self.limit_val_batches or self.split.sizes.val)
+        if n == 0:
+            return {}
+        acc: Optional[Dict[str, torch.Tensor]] = None
+        for i in range(n):
+            m = self.task.val_step(state, self.split.val_batch_num(i))
+            acc = m if acc is None else {k: acc[k] + m[k] for k in m}
+        return {k: _to_float(v) / n for k, v in acc.items()}
+
+    def fit(self, state, start_step: int = 0):
+        n_train = self.split.sizes.train
+        if self.limit_train_batches:
+            n_train = min(n_train, self.limit_train_batches)
+        self.interrupted = None
+        # abort on rejections from THIS run only
+        self._notfinite_base = _to_float(state.optimizer.total_notfinite)
+        with PreemptionGuard() as guard:
+            state = self._fit_loop(state, start_step, n_train, guard)
+        if self.interrupted == signal.SIGINT:
+            raise KeyboardInterrupt
+        return state
+
+    def _fit_loop(self, state, start_step: int, n_train: int, guard):
+        window_start = time.time()
+        i = start_step
+        while i < n_train:
+            if guard.requested is not None:
+                self.interrupted = guard.requested
+                self._log({"preempted_by_signal": float(guard.requested)}, step=i)
+                return state
+            state, metrics = self.task.train_step(state, self.split.train_batch_num(i))
+            i += 1
+            first = i - 1 == start_step
+            if i % self.log_every == 0 or first:
+                metrics = {k: _to_float(v) for k, v in metrics.items()}
+                metrics["notfinite_steps"] = (
+                    _to_float(state.optimizer.total_notfinite) - self._notfinite_base
+                )
+                now = time.time()
+                steps = 1 if first else self.log_every
+                metrics["steps_per_sec"] = steps / max(now - window_start, 1e-9)
+                metrics["voices_per_sec"] = metrics["steps_per_sec"] * self.task.synth.batch_size
+                window_start = now
+                bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+                if metrics["notfinite_steps"]:
+                    bad["notfinite_steps"] = metrics["notfinite_steps"]
+                if bad:
+                    raise FloatingPointError(
+                        f"non-finite metrics by step {i - 1}: {bad} (non-finite "
+                        f"updates were rejected on the device, not applied)"
+                    )
+                self._log(metrics, step=i - 1)
+            if self.val_check_interval and i % self.val_check_interval == 0:
+                self._log(self.validate(state), step=i - 1)
+        return state

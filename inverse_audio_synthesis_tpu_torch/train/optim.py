@@ -1,0 +1,211 @@
+"""LARS (lightning-flash's rule, zero momentum), its LR schedule, and the non-finite guard.
+
+Counterpart of the JAX package's ``train/optim.py``:
+
+- ``FusedLars`` is ``fused_lars`` with its non-finite guard. flash's formula:
+
+      if wd == 0:                  update = -lr * g                 (plain SGD)
+      elif ||w|| > 0 and ||g|| > 0: local_lr = tc*||w|| / (||g|| + wd*||w|| + eps)
+                                   update = -lr * local_lr * (g + wd*w)
+      else:                        update = -lr * g                 (no decay either)
+
+  A step whose gradient (or weight) norms are not finite applies no update, does
+  not advance the schedule count, and adds one to ``total_notfinite`` (the JAX
+  package's guard, always on here as in its ``make_optimizer``). Everything stays on the device: no step waits for the host.
+- ``make_schedule``: optax's ``warmup_cosine_decay_schedule`` (linear warmup then
+  cosine decay), with ``step_every_nbatches``.
+- ``make_optimizer``: LARS with the batch/256 LR scaling, or SGD.
+
+Plain torch, one small group of ops per parameter tensor; the norms go through
+``torch._foreach_norm``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Iterable, List, Tuple, Union
+
+import torch
+
+Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _as_f32(step, device=None) -> torch.Tensor:
+    return torch.as_tensor(step, device=device).to(torch.float32)
+
+
+def warmup_cosine_decay_schedule(
+    init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+    end_value: float = 0.0,
+) -> Callable:
+    """optax.warmup_cosine_decay_schedule (exponent 1): a linear ramp from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then cosine decay to
+    ``end_value`` at ``decay_steps``. Takes an int or a tensor step."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = float(decay_steps - warmup_steps)
+
+    def linear(count):
+        if warmup_steps <= 0:
+            return torch.full_like(count, init_value)
+        c = torch.clamp(count, 0.0, float(warmup_steps))
+        frac = 1.0 - c / float(warmup_steps)
+        return (init_value - peak_value) * frac + peak_value
+
+    def cosine(count):
+        c = torch.clamp_max(count, cos_steps)
+        decay = 0.5 * (1.0 + torch.cos(math.pi * c / cos_steps))
+        return peak_value * ((1.0 - alpha) * decay + alpha)
+
+    def schedule(step):
+        count = _as_f32(step)
+        return torch.where(count < warmup_steps, linear(count), cosine(count - warmup_steps))
+
+    return schedule
+
+
+def make_schedule(scheduler_cfg: Any, peak_lr: float) -> Schedule:
+    """A schedule (callable of the step) or the constant ``peak_lr``."""
+    if not scheduler_cfg or not scheduler_cfg.get("name"):
+        return peak_lr
+    name = scheduler_cfg["name"]
+    if name != "LinearWarmupCosineAnnealingLR":
+        raise ValueError(f"unknown scheduler {name!r}")
+    args = scheduler_cfg.get("args", {})
+    schedule = warmup_cosine_decay_schedule(
+        init_value=float(args.get("warmup_start_lr", 0.0)),
+        peak_value=peak_lr,
+        warmup_steps=int(args["warmup_epochs"]),
+        decay_steps=int(args["max_epochs"]),
+        end_value=float(args.get("eta_min", 0.0)),
+    )
+    step_every = int(scheduler_cfg.get("step_every_nbatches", 1))
+    if step_every > 1:
+        return lambda step: schedule(torch.div(torch.as_tensor(step), step_every, rounding_mode="floor"))
+    return schedule
+
+
+def schedule_value(schedule: Schedule, step) -> torch.Tensor:
+    if callable(schedule):
+        return schedule(step).to(torch.float32)
+    return torch.tensor(float(schedule), dtype=torch.float32)
+
+
+class FusedLars:
+    """flash LARS (zero momentum) over a list of parameters, with the non-finite
+    guard folded into the norms it already takes."""
+
+    def __init__(
+        self,
+        params: Iterable[torch.Tensor],
+        learning_rate: Schedule,
+        weight_decay: float = 0.0,
+        trust_coefficient: float = 0.001,
+        eps: float = 1e-8,
+        exclude_bias_and_norm: bool = False,
+    ):
+        self.params: List[torch.Tensor] = list(params)
+        if not self.params:
+            raise ValueError("FusedLars needs at least one parameter")
+        device = self.params[0].device
+        self.learning_rate = learning_rate
+        self.weight_decay = float(weight_decay)
+        self.trust_coefficient = trust_coefficient
+        self.eps = eps
+        self.exclude_bias_and_norm = exclude_bias_and_norm
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.total_notfinite = torch.zeros((), dtype=torch.int32, device=device)
+
+    def _decays(self, w: torch.Tensor) -> bool:
+        return self.weight_decay != 0.0 and not (self.exclude_bias_and_norm and w.dim() == 1)
+
+    @torch.no_grad()
+    def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The updates for ``grads`` (one per parameter), and the count/guard state
+        advanced; the caller adds them to the parameters."""
+        lr = schedule_value(self.learning_rate, self.count).to(self.count.device)
+        wd = self.weight_decay
+        gf = [g.float() for g in grads]
+        g_norm = torch._foreach_norm(gf)
+        decayed = [i for i, w in enumerate(self.params) if self._decays(w)]
+        w_norm = {}
+        if decayed:
+            w_norm = dict(zip(decayed, torch._foreach_norm([self.params[i].float() for i in decayed])))
+        isfinite = torch.isfinite(torch.stack(list(g_norm) + list(w_norm.values()))).all()
+
+        out = []
+        for i, (g, w) in enumerate(zip(gf, self.params)):
+            if i not in w_norm:  # flash's plain-SGD path
+                upd = -lr * g
+            else:
+                wn, gn = w_norm[i], g_norm[i]
+                cond = (wn > 0.0) & (gn > 0.0)
+                local_lr = torch.where(
+                    cond, self.trust_coefficient * wn / (gn + wd * wn + self.eps), 1.0
+                )
+                # cond false: 1 * (g + 0 * w) == g exactly, flash's undecayed step
+                upd = -lr * (local_lr * (g + torch.where(cond, wd, 0.0) * w.float()))
+            out.append(torch.where(isfinite, upd, 0.0))
+        ok = isfinite.to(torch.int32)
+        self.count += ok
+        self.total_notfinite += 1 - ok
+        return out
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]) -> None:
+        """Apply one update for ``grads`` (one per parameter) in place."""
+        for p, u in zip(self.params, self.updates(grads)):
+            p.add_(u.to(p.dtype))
+
+
+class Sgd:
+    """Plain SGD (zero momentum) with the same guard and interface as FusedLars."""
+
+    def __init__(self, params, learning_rate: Schedule):
+        self.params = list(params)
+        device = self.params[0].device
+        self.learning_rate = learning_rate
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.total_notfinite = torch.zeros((), dtype=torch.int32, device=device)
+
+    @torch.no_grad()
+    def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        lr = schedule_value(self.learning_rate, self.count).to(self.count.device)
+        gf = [g.float() for g in grads]
+        isfinite = torch.isfinite(torch.stack(torch._foreach_norm(gf))).all()
+        out = [torch.where(isfinite, -lr * g, 0.0) for g in gf]
+        ok = isfinite.to(torch.int32)
+        self.count += ok
+        self.total_notfinite += 1 - ok
+        return out
+
+    step = FusedLars.step
+
+
+def make_optimizer(
+    optim_cfg: Any,
+    batch_size: int,
+    params: Iterable[torch.Tensor],
+    scheduler_cfg: Any = None,
+) -> Tuple[Any, Schedule]:
+    """The optimizer named by the config over ``params`` (zero momentum, as the
+    pretraining task uses it). Returns (optimizer, schedule). A step with a
+    non-finite gradient is rejected on the device and counted in
+    ``optimizer.total_notfinite``; the Trainer raises on it."""
+    name = optim_cfg["name"]
+    args = optim_cfg.get("args", {})
+    if name == "lars":
+        peak_lr = batch_size / 256.0 * float(args["base_lr"])
+        schedule = make_schedule(scheduler_cfg, peak_lr)
+        opt = FusedLars(
+            params,
+            learning_rate=schedule,
+            weight_decay=float(args.get("weight_decay", 0.0)),
+            trust_coefficient=0.001,
+            eps=1e-8,
+            exclude_bias_and_norm=bool(args.get("exclude_bias_and_norm", False)),
+        )
+        return opt, schedule
+    if name == "sgd":
+        schedule = make_schedule(scheduler_cfg, float(args["lr"]))
+        return Sgd(params, schedule), schedule
+    raise ValueError(f"unknown optimizer {name!r}")
