@@ -4,16 +4,30 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
-  1. device and build: the card's name and power limit, then the render kernel
-     built with nvcc from csrc/render_fwd.cu (sm_90a);
-  2. the render kernel against its plain version on the card (4 s voices, batch
-     16 and 128, params and noise from the port's own sample_voice_params/noise),
-     and the kernel's and plain version's times (CUDA events, median of 25
+  1. device and build: the card's name and power limit, then both render kernels
+     built with nvcc from csrc/render_fwd.cu and csrc/render_bwd.cu (sm_90a), one
+     nvcc process each, started together;
+  2. the forward render kernel (K1) against its plain version on the card (4 s
+     voices, batch 16, 128 and 1024, params and noise from the port's own
+     sample_voice_params/noise), with its saved phase offsets bit-identical to
+     the plain version's, and the times of both (CUDA events, median over
      launches with the L2 cache flushed before each);
-  3. four VICReg training steps of the full default config (vicreg=full,
+  3. the render backward kernel (K2) against its plain version at batch 128 and
+     1024 (d_routed within 5e-4 and d_scalars within 1e-4 of each signal's and
+     column's largest value), against autograd of the plain forward at batch 16
+     (the same bounds, exact-tie entries left out: there autograd of a clamp
+     passes the gradient and the kernel's strict masks do not), and the times of
+     both beside the bound;
+  4. four VICReg training steps of the full default config (vicreg=full,
      precision bf16) through Trainer.fit, then one validation step, with the
-     launch counters reset just before and read just after;
-  4. one JSON line listing every ported kernel with its launches and times.
+     launch counters reset just before and read just after; the run writes a
+     VICReg checkpoint to a temporary directory;
+  5. the downstream slice: that checkpoint restored into a fresh
+     VicregPretrainTask, then four AudioToParamsTask train steps of the default
+     downstream config with audio_to_params.loss=combined (batch 1024, dim 1024,
+     4 s voices, bf16) through Trainer.fit, then one test step, with the counters
+     reset just before and read just after;
+  6. one JSON line listing every ported kernel with its launches and times.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero and
 prints no result. The script needs a CUDA device and the repository beside it.
 """
@@ -25,6 +39,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -36,7 +51,19 @@ PEAK_F32_FLOP_PER_S = 67e12
 # controls 16, per oscillator 32 (pitch 6, exp2 18, increment 2, phase 6) x 2,
 # two sincos reductions 27 x 2, tanh 27, square/saw morph 6, VCAs and mix 11
 RENDER_FLOPS_PER_SAMPLE = 182
+# float32 operations per audio sample of the render's backward, counted once
+# (csrc/render_bwd.cu): the forward recompute up to the oscillators and VCAs 171
+# (the render's 182 less the mix); the VCA, oscillator and mixer cotangents 46
+# (VCO 1 9, VCO 2 30, noise 7); their per-segment sums 25 (7 scalar adds, 3 x 3
+# upsample weights by multiply-add, 3 weights); per oscillator in the backward
+# walk 46 (control 4, suffix 2, pre-clip pitch 2, increment 24, mask 3, chain 3,
+# scalar sums 3, upsample weights 5) x 2, and the walk's interpolation weights 4
+RENDER_BWD_FLOPS_PER_SAMPLE = 171 + 46 + 25 + 2 * 46 + 4
 PHASE_TOLERANCE = {"max_abs": 2e-3, "rel_rms": 1e-4}
+# K2 against its plain version and against autograd: the JAX package's bounds
+# for its backward (tests/test_pallas_render.py), per signal / scalar column
+BWD_TOLERANCE = {"d_routed": 5e-4, "d_scalars": 1e-4}
+N_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -85,16 +112,30 @@ def render_inputs(batch: int, batch_num: int):
     return cfg, params01, routed.contiguous(), scalars.contiguous(), noise
 
 
-def render_bound_ms(routed, noise) -> tuple[float, str]:
-    """Least time for the render's work on an H100: each input read once and the
-    output written once, against the float32 operations it does."""
-    b, _, tc = routed.shape
-    ta = noise.shape[-1]
-    nbytes = 4 * (b * ta + b * 5 * tc + b * 16 + b * ta)
-    flops = RENDER_FLOPS_PER_SAMPLE * b * ta
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time on an H100: the larger of bytes over the memory rate and
+    float32 operations over the float32 rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def render_bound_ms(routed, noise) -> tuple[float, str]:
+    """The forward reads noise and the routed controls and scalars once and
+    writes the audio once."""
+    b, _, tc = routed.shape
+    ta = noise.shape[-1]
+    nbytes = 4 * (b * ta + b * 5 * tc + b * 16 + b * ta)
+    return bound_ms(nbytes, RENDER_FLOPS_PER_SAMPLE * b * ta)
+
+
+def render_bwd_bound_ms(routed, noise, seg_mean) -> tuple[float, str]:
+    """The backward reads noise and g, the controls, the scalars and the saved
+    means and offsets once, and writes d_routed and d_scalars once."""
+    b, _, tc = routed.shape
+    ta = noise.shape[-1]
+    nbytes = 4 * (2 * b * ta + 2 * b * 5 * tc + 2 * b * 16 + 2 * seg_mean.numel())
+    return bound_ms(nbytes, RENDER_BWD_FLOPS_PER_SAMPLE * b * ta)
 
 
 def phase_render() -> dict:
@@ -104,7 +145,7 @@ def phase_render() -> dict:
     from inverse_audio_synthesis_tpu_torch.synth.voice import render_voice
 
     result = {}
-    for batch in (16, 128):
+    for batch in (16, 128, 1024):
         cfg, params01, routed, scalars, noise = render_inputs(batch, batch_num=1234)
         sr = float(cfg.sample_rate)
         out_k = R.render_audio_fused(routed, scalars, noise, sr)
@@ -118,22 +159,113 @@ def phase_render() -> dict:
         log(f"[render] B={batch} kernel vs plain: max|d|={max_abs:.3e} rel-rms={rel_rms:.3e}")
         if max_abs > PHASE_TOLERANCE["max_abs"] or rel_rms > PHASE_TOLERANCE["rel_rms"]:
             raise AssertionError(f"render kernel disagrees with its plain version: {max_abs}, {rel_rms}")
-        # the portable render (render_voice) within the JAX package's render bound
-        ref = render_voice(params01, cfg, noise)
-        pe = (out_k - ref).abs()
-        pe_rms = float(pe.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
-        log(f"[render] B={batch} kernel vs render_voice: max|d|={float(pe.max()):.3e} rel-rms={pe_rms:.3e}")
-        if float(pe.max()) > 0.08 or pe_rms > 0.01:
-            raise AssertionError("render kernel disagrees with render_voice beyond 0.08 / 0.01")
+        # what the backward reads: bit-identical to the plain version's
+        saved_k = R.render_audio_fused(routed, scalars, noise, sr, save_phase=True)
+        saved_p = R.render_audio_plain(routed, scalars, noise, sr, save_phase=True)
+        diffs = [float((a - b).abs().max()) for a, b in zip(saved_k, saved_p)]
+        log(f"[render] B={batch} with saved phase, kernel vs plain max|d| "
+            f"(audio, means, offsets): {diffs}")
+        if any(d != 0.0 for d in diffs):
+            raise AssertionError("the render kernel with saved offsets is not bit-identical to its plain version")
+        del saved_k, saved_p
+        if batch <= 128:  # the portable render within the JAX package's render bound
+            ref = render_voice(params01, cfg, noise)
+            pe = (out_k - ref).abs()
+            pe_rms = float(pe.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+            log(f"[render] B={batch} kernel vs render_voice: max|d|={float(pe.max()):.3e} rel-rms={pe_rms:.3e}")
+            if float(pe.max()) > 0.08 or pe_rms > 0.01:
+                raise AssertionError("render kernel disagrees with render_voice beyond 0.08 / 0.01")
+            del ref, pe
+        del out_k, out_p, err
         ms = cuda_time_ms(lambda: R.render_audio_fused(routed, scalars, noise, sr))
-        plain_ms = cuda_time_ms(lambda: R.render_audio_plain(routed, scalars, noise, sr), reps=20)
-        bound_ms, bound_by = render_bound_ms(routed, noise)
+        plain_ms = cuda_time_ms(lambda: R.render_audio_plain(routed, scalars, noise, sr),
+                                reps=20 if batch <= 128 else 3, warmup=1)
+        b_ms, bound_by = render_bound_ms(routed, noise)
         log(f"[render] B={batch} kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"bound {b_ms:.4f} ms ({bound_by})")
         result[batch] = dict(max_abs_err=max_abs, rel_rms=rel_rms, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-        del out_k, out_p, ref, noise, routed, scalars
+                             bound_ms=b_ms, bound_by=bound_by)
+        del noise, routed, scalars
         torch.cuda.empty_cache()
+    return result
+
+
+def _rel_errs(dr_k, ds_k, dr_ref, ds_ref, keep_r=None, keep_s=None):
+    """Per signal of d_routed and per used column of d_scalars: max|d| over the
+    entries kept, over the largest |reference| of that signal or column."""
+    import torch
+
+    if keep_r is not None:
+        dr_k, dr_ref = dr_k * keep_r, dr_ref * keep_r
+        ds_k, ds_ref = ds_k * keep_s, ds_ref * keep_s
+    r = [float((dr_k[:, s] - dr_ref[:, s]).abs().max() / (dr_ref[:, s].abs().max() + 1e-30))
+         for s in range(5)]
+    s = [float((ds_k[:, i] - ds_ref[:, i]).abs().max() / (ds_ref[:, i].abs().max() + 1e-30))
+         for i in range(11)]
+    if not (torch.isfinite(dr_k).all() and torch.isfinite(ds_k).all()):
+        raise AssertionError("non-finite render backward")
+    return r, s
+
+
+def _check_bwd(what: str, r, s) -> None:
+    log(f"[render_bwd] {what}: d_routed per signal {['%.2e' % v for v in r]}; "
+        f"d_scalars per column max {max(s):.2e}")
+    if max(r) > BWD_TOLERANCE["d_routed"] or max(s) > BWD_TOLERANCE["d_scalars"]:
+        raise AssertionError(f"render backward disagrees ({what}): {r} {s}")
+
+
+def phase_render_bwd() -> dict:
+    import torch
+
+    from inverse_audio_synthesis_tpu_torch.ops import render as R
+
+    result = {}
+    for batch in (128, 1024):
+        cfg, _, routed, scalars, noise = render_inputs(batch, batch_num=42)
+        sr = float(cfg.sample_rate)
+        g = torch.randn(noise.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(batch))
+        _, seg_mean, offset = R.render_audio_fused(routed, scalars, noise, sr, save_phase=True)
+        dr_k, ds_k = R.render_audio_fused_bwd(routed, scalars, noise, g, seg_mean, offset, sr)
+        dr_p, ds_p = R.render_audio_bwd_plain(routed, scalars, noise, g, seg_mean, offset, sr)
+        torch.cuda.synchronize()
+        r, s = _rel_errs(dr_k, ds_k, dr_p, ds_p)
+        _check_bwd(f"B={batch} kernel vs plain", r, s)
+        dr_k2, ds_k2 = R.render_audio_fused_bwd(routed, scalars, noise, g, seg_mean, offset, sr)
+        repeat = bool(torch.equal(dr_k, dr_k2) and torch.equal(ds_k, ds_k2))
+        log(f"[render_bwd] B={batch} a second launch is bit-identical: {repeat}")
+        if not repeat:
+            raise AssertionError("the render backward does not repeat bit for bit")
+        max_abs = max(float((dr_k - dr_p).abs().max()), float((ds_k - ds_p).abs().max()))
+        del dr_p, ds_p, dr_k2, ds_k2
+        ms = cuda_time_ms(lambda: R.render_audio_fused_bwd(routed, scalars, noise, g, seg_mean, offset, sr))
+        plain_ms = cuda_time_ms(
+            lambda: R.render_audio_bwd_plain(routed, scalars, noise, g, seg_mean, offset, sr),
+            reps=5 if batch <= 128 else 3, warmup=1,
+        )
+        b_ms, bound_by = render_bwd_bound_ms(routed, noise, seg_mean)
+        log(f"[render_bwd] B={batch} kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
+            f"bound {b_ms:.4f} ms ({bound_by})")
+        result[batch] = dict(max_abs_err=max_abs, rel_d_routed=max(r), rel_d_scalars=max(s),
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=bound_by)
+        del g, seg_mean, offset, dr_k, ds_k, noise, routed, scalars
+        torch.cuda.empty_cache()
+
+    # against autograd of the plain forward, exact-tie entries left out
+    cfg, _, routed, scalars, noise = render_inputs(16, batch_num=7)
+    sr = float(cfg.sample_rate)
+    g = torch.randn(noise.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(16))
+    _, seg_mean, offset = R.render_audio_fused(routed, scalars, noise, sr, save_phase=True)
+    dr_k, ds_k = R.render_audio_fused_bwd(routed, scalars, noise, g, seg_mean, offset, sr)
+    r_, s_ = routed.clone().requires_grad_(), scalars.clone().requires_grad_()
+    dr_a, ds_a = torch.autograd.grad(R.render_audio_plain(r_, s_, noise, sr), (r_, s_), g)
+    tie_r, tie_s = R.gradient_ties(routed, scalars, noise.shape[-1])
+    log(f"[render_bwd] B=16 exact-tie entries left out: {int(tie_r.sum())} of d_routed, "
+        f"{int(tie_s.sum())} of d_scalars")
+    r, s = _rel_errs(dr_k, ds_k, dr_a, ds_a, (~tie_r).float(), (~tie_s).float())
+    _check_bwd("B=16 kernel vs autograd of the plain forward", r, s)
+    result["autograd_b16"] = dict(rel_d_routed=max(r), rel_d_scalars=max(s))
+    del r_, s_, dr_a, ds_a
+    torch.cuda.empty_cache()
     return result
 
 
@@ -145,16 +277,21 @@ class ListLogger:
         self.records.append({"step": step, **metrics})
 
 
-def phase_train(n_steps: int = 4) -> dict:
+def _step_times(steps) -> float:
+    return statistics.median(1e3 / r["steps_per_sec"] for r in steps[1:])
+
+
+def phase_train(ckpt_dir: Path) -> dict:
     import torch
 
     from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
     from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
     from inverse_audio_synthesis_tpu_torch.train.pretrain import VicregPretrainTask
     from inverse_audio_synthesis_tpu_torch.train.runsetup import BatchNumberSplit
     from inverse_audio_synthesis_tpu_torch.utils.config import load_config
 
-    cfg = load_config(overrides=[f"vicreg.limit_train_batches={n_steps}", "log_every=1"])
+    cfg = load_config(overrides=[f"vicreg.limit_train_batches={N_STEPS}", "log_every=1"])
     t0 = time.time()
     task = VicregPretrainTask(cfg)
     state = task.init_state()
@@ -167,7 +304,9 @@ def phase_train(n_steps: int = 4) -> dict:
         raise AssertionError("the full config's geometry must take the render kernel")
     split = BatchNumberSplit(cfg.num_batches, cfg.ntest_batches, cfg.seed)
     logger = ListLogger()
-    trainer = Trainer(task, split, logger=logger, limit_train_batches=n_steps, log_every=1)
+    checkpoint = CheckpointManager(str(ckpt_dir), every_n_steps=cfg.vicreg.checkpoint_every_nbatches)
+    trainer = Trainer(task, split, logger=logger, checkpoint=checkpoint,
+                      limit_train_batches=N_STEPS, log_every=1)
 
     R.reset_launch_counts()
     state = trainer.fit(state)
@@ -183,20 +322,104 @@ def phase_train(n_steps: int = 4) -> dict:
             f"cov {r['vicreg/train/cov_loss']:.4f}) lr {r['lr']:.3e} "
             f"step {1e3 / r['steps_per_sec']:.1f} ms notfinite {r['notfinite_steps']:.0f}")
     log(f"[train] validation: " + " ".join(f"{k}={v:.4f}" for k, v in val.items()))
-    if len(steps) != n_steps:
-        raise AssertionError(f"expected {n_steps} logged steps, got {len(steps)}")
+    if len(steps) != N_STEPS:
+        raise AssertionError(f"expected {N_STEPS} logged steps, got {len(steps)}")
     if not all(math.isfinite(r["vicreg/train/loss"]) for r in steps):
         raise AssertionError("non-finite training loss")
     if any(r["notfinite_steps"] != 0 for r in steps):
         raise AssertionError("non-finite updates were rejected")
     if not all(math.isfinite(v) for v in val.values()):
         raise AssertionError("non-finite validation metrics")
-    if launches["render_fwd"] < n_steps + 1:
+    if launches["render_fwd"] < N_STEPS + 1:
         raise AssertionError(f"render kernel launched {launches['render_fwd']} times in "
-                             f"{n_steps} train steps and one val step")
-    step_ms = statistics.median(1e3 / r["steps_per_sec"] for r in steps[1:])
-    log(f"[train] median step after the first: {step_ms:.1f} ms; render launches {launches}")
-    return {"launches": launches, "step_ms": step_ms}
+                             f"{N_STEPS} train steps and one val step")
+    if checkpoint.latest_step() != N_STEPS:
+        raise AssertionError(f"expected a checkpoint of step {N_STEPS}, found {checkpoint.latest_step()}")
+    probe = state.model.projector.lin_final.weight.detach().float().cpu()
+    step_ms = _step_times(steps)
+    log(f"[train] median step after the first: {step_ms:.1f} ms; launches {launches}; "
+        f"checkpoint step {checkpoint.latest_step()} in {checkpoint.dir}")
+    del task, state, trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "probe": probe}
+
+
+def phase_downstream(ckpt_dir: Path, probe) -> dict:
+    import torch
+
+    from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
+    from inverse_audio_synthesis_tpu_torch.train.downstream import AudioToParamsTask
+    from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
+    from inverse_audio_synthesis_tpu_torch.train.pretrain import VicregPretrainTask
+    from inverse_audio_synthesis_tpu_torch.train.runsetup import BatchNumberSplit
+    from inverse_audio_synthesis_tpu_torch.utils.config import load_config
+
+    cfg = load_config(overrides=[
+        "audio_to_params.loss=combined", f"audio_to_params.limit_train_batches={N_STEPS}",
+        "log_every=1",
+    ])
+    a2p = cfg.audio_to_params
+    t0 = time.time()
+    pretrain_task = VicregPretrainTask(cfg)
+    vicreg_state = CheckpointManager(str(ckpt_dir)).restore(pretrain_task.init_state())
+    restored = vicreg_state.model.projector.lin_final.weight.detach().float().cpu()
+    if vicreg_state.step != N_STEPS or not torch.equal(restored, probe):
+        raise AssertionError("the restored VICReg checkpoint differs from the saved model")
+    task = AudioToParamsTask(cfg, pretrain_task, vicreg_state)
+    del pretrain_task, vicreg_state
+    state = task.init_state()
+    torch.cuda.synchronize()
+    weights = {k: float(v) for k, v in task.loss_weights.items()}
+    log(f"[downstream] restored VICReg step {N_STEPS}; loss {task.loss_kind} weights {weights} "
+        f"batch {a2p.batch_size} dim {cfg.dim} {cfg.torchsynth.buffer_size_seconds} s "
+        f"precision {cfg.precision} render_bwd {task.render_bwd} mel_rows {a2p.mel_rows} "
+        f"mel_chunk {a2p.mel_chunk}: set-up {time.time() - t0:.1f} s")
+    if not task.fused_render or task.render_bwd != "pallas":
+        raise AssertionError("the slice must take the render kernels")
+    split = BatchNumberSplit(cfg.num_batches, cfg.ntest_batches, cfg.seed)
+    logger = ListLogger()
+    trainer = Trainer(task, split, logger=logger, limit_train_batches=N_STEPS, log_every=1)
+    frozen_before = [p.detach().clone() for p in task.frozen.parameters()][:4]
+
+    torch.cuda.reset_peak_memory_stats()
+    R.reset_launch_counts()
+    state = trainer.fit(state)
+    metrics, true_audio, pred_audio = task.test_step(state, split.test_batch_num(0))
+    metrics = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+    torch.cuda.synchronize()
+    launches = dict(R.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps = [r for r in logger.records if "audio_to_params/train/loss" in r]
+    for r in steps:
+        comps = {k.rsplit("/", 1)[1]: r[k] for k in r if k.startswith("audio_to_params/train/")}
+        log(f"[downstream] step {r['step']}: " + " ".join(f"{k} {v:.5f}" for k, v in comps.items())
+            + f" step {1e3 / r['steps_per_sec']:.1f} ms notfinite {r['notfinite_steps']:.0f}")
+        total = sum(w * r[f"audio_to_params/train/{k}"] for k, w in weights.items() if w)
+        if not math.isclose(total, r["audio_to_params/train/loss"], rel_tol=1e-5, abs_tol=1e-7):
+            raise AssertionError(f"loss {r['audio_to_params/train/loss']} != sum of w * component {total}")
+    log("[downstream] test: " + " ".join(f"{k.split('/', 1)[1]}={v:.4f}" for k, v in metrics.items()))
+    if len(steps) != N_STEPS:
+        raise AssertionError(f"expected {N_STEPS} logged steps, got {len(steps)}")
+    if not all(math.isfinite(v) for r in steps for v in r.values() if isinstance(v, float)):
+        raise AssertionError("non-finite downstream training metrics")
+    if any(r["notfinite_steps"] != 0 for r in steps):
+        raise AssertionError("non-finite updates were rejected")
+    if not all(math.isfinite(v) for v in metrics.values()) or not torch.isfinite(pred_audio).all():
+        raise AssertionError("non-finite test metrics or resynthesized audio")
+    if {tuple(pred_audio.shape), tuple(true_audio.shape)} != {(a2p.batch_size, 176400)}:
+        raise AssertionError(f"resynthesized audio of shape {tuple(pred_audio.shape)}")
+    if not all(torch.equal(a, b) for a, b in zip(frozen_before, list(task.frozen.parameters())[:4])):
+        raise AssertionError("the frozen towers changed")
+    need_fwd = 2 * N_STEPS + 2
+    if launches["render_bwd"] < N_STEPS or launches["render_fwd"] < need_fwd:
+        raise AssertionError(f"launches {launches}: need render_bwd >= {N_STEPS}, render_fwd >= {need_fwd}")
+    step_ms = _step_times(steps)
+    log(f"[downstream] median step after the first: {step_ms:.1f} ms "
+        f"({a2p.batch_size / step_ms * 1e3:.0f} voices/s); peak device memory {peak_gb:.1f} GB; "
+        f"launches {launches}")
+    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb, "test": metrics}
 
 
 def main() -> int:
@@ -214,31 +437,49 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"[device] {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
     t0 = time.time()
-    lib = R.build_render_library()
-    log(f"[build] {lib.name} in {time.time() - t0:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    libs = R.build_render_libraries()
+    log(f"[build] {', '.join(p.name for p in libs.values())} in {time.time() - t0:.1f} s")
+    for name, lib in libs.items():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
 
     render = phase_render()
-    train = phase_train()
+    render_bwd = phase_render_bwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        ckpt_dir = Path(tmp) / "vicreg"
+        train = phase_train(ckpt_dir)
+        downstream = phase_downstream(ckpt_dir, train["probe"])
 
-    b16 = render[16]
-    kernels = [{
-        "name": "render_fwd",
-        "route": "cuda",
-        "source": "inverse_audio_synthesis_tpu_torch/csrc/render_fwd.cu",
-        "replaces": "inverse_audio_synthesis_tpu/ops/pallas/render.py:137",
-        "launches": train["launches"]["render_fwd"],
-        "max_abs_err": b16["max_abs_err"],
-        "ms": b16["ms"],
-        "plain_ms": b16["plain_ms"],
-        "bound_ms": b16["bound_ms"],
-        "bound_by": b16["bound_by"],
-        "library_ms": None,
-        "b128": {k: render[128][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
-        "train_step_ms": train["step_ms"],
-    }]
+    def entry(name, source, replaces, by_batch, main_batch):
+        main = by_batch[main_batch]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": downstream["launches"][name],
+            "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,
+            "batch": main_batch,
+            "launches_by_path": {"vicreg_pretrain": train["launches"][name],
+                                 "downstream_combined": downstream["launches"][name]},
+            "by_batch": {str(b): {k: v[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                         for b, v in by_batch.items() if isinstance(b, int)},
+        }
+
+    kernels = [
+        entry("render_fwd", "inverse_audio_synthesis_tpu_torch/csrc/render_fwd.cu",
+              "inverse_audio_synthesis_tpu/ops/pallas/render.py:137", render, 1024),
+        entry("render_bwd", "inverse_audio_synthesis_tpu_torch/csrc/render_bwd.cu",
+              "inverse_audio_synthesis_tpu/ops/pallas/render.py:339", render_bwd, 1024),
+    ]
+    kernels[0]["pretrain_step_ms"] = train["step_ms"]
+    kernels[1]["downstream_step_ms"] = downstream["step_ms"]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

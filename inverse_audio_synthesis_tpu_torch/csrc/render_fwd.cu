@@ -25,128 +25,20 @@
 // offsets and per-tile wrapped sums (a few hundred KB); render_audio_kernel
 // folds the carry of all earlier tiles (at most a few dozen adds), then renders
 // its tile. Noise is loaded and audio stored through shared memory, so that both
-// are coalesced although each thread walks its own segment.
+// are coalesced although each thread walks its own segment. On request the render
+// pass also writes each segment's final wrapped phase offset (carry of the
+// earlier tiles folded in); with the segment means they let the backward
+// (render_bwd.cu) recompute every sample's phase exactly.
 //
 // Rounding. Every step is an exactly rounded float32 mul/add/div/floor/fmod, in
 // the order of the plain version (ops/render.py:render_audio_plain) and of
-// ops/math_ops.py. Build with --fmad=false: a contracted a*b+c rounds once and
-// breaks the Horner sequences that make exp2/sin/cos/tanh reproducible.
+// ops/math_ops.py, with the helpers of render_common.cuh. Build with --fmad=false.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "render_common.cuh"
 
 namespace {
 
-constexpr int SEG_TILE = 64;  // segments (threads) per tile; ops/render.py SEG_TILE
-constexpr int WARPS = SEG_TILE / 32;
-constexpr unsigned FULL = 0xffffffffu;
-
-// float32 constants, written as hex so no decimal rounding intervenes
-constexpr float TWO_PI = 0x1.921fb6p+2f;      // f32(2*pi) = 6.2831855
-constexpr float PI_F = 0x1.921fb6p+1f;        // f32(pi)
-constexpr float TWO_OVER_PI = 0x1.45f306p-1f;
-constexpr float PIO2_HI = 0x1.92p+0f;
-constexpr float PIO2_MID = 0x1.fb4p-12f;
-constexpr float PIO2_LO = 0x1.4442d2p-24f;
-constexpr float TWO_LOG2E = 0x1.715476p+1f;
-
-__device__ __forceinline__ float mod_2pi(float x) {
-  // jnp.mod's floored remainder: fmodf is exact, then move into [0, 2pi)
-  float r = fmodf(x, TWO_PI);
-  return (r != 0.0f && r < 0.0f) ? r + TWO_PI : r;
-}
-
-__device__ __forceinline__ float exp2_accurate(float x) {
-  float n = floorf(x + 0.5f);
-  float f = x - n;
-  float p = 0x1.418bc6p-13f;
-  p = p * f + 0x1.5f2252p-10f;
-  p = p * f + 0x1.3b2dcp-7f;
-  p = p * f + 0x1.c6af1ep-5f;
-  p = p * f + 0x1.ebfbdcp-3f;
-  p = p * f + 0x1.62e43p-1f;
-  p = p * f + 1.0f;
-  return p * __int_as_float(((int)n + 127) << 23);
-}
-
-__device__ __forceinline__ void sincos_fast(float x, float* sin_out, float* cos_out) {
-  float n = floorf(x * TWO_OVER_PI + 0.5f);
-  float q = x - n * PIO2_HI;
-  q = q - n * PIO2_MID;
-  q = q - n * PIO2_LO;
-  float z = q * q;
-  float ps = 0x1.6cd878p-19f;
-  ps = ps * z + -0x1.a00f9ep-13f;
-  ps = ps * z + 0x1.111108p-7f;
-  ps = ps * z + -0x1.555556p-3f;
-  float s = q + q * (z * ps);
-  float pc = 0x1.99342ep-16f;
-  pc = pc * z + -0x1.6c087ep-10f;
-  pc = pc * z + 0x1.55553ep-5f;
-  pc = pc * z + -0x1p-1f;
-  float c = 1.0f + z * pc;
-  int k = ((int)n) & 3;
-  *sin_out = k == 0 ? s : (k == 1 ? c : (k == 2 ? -s : -c));
-  *cos_out = k == 0 ? c : (k == 1 ? -s : (k == 2 ? -c : s));
-}
-
-__device__ __forceinline__ float tanh_fast(float x) {
-  x = fminf(fmaxf(x, -43.0f), 43.0f);
-  float y = exp2_accurate(x * TWO_LOG2E);
-  return (y - 1.0f) / (y + 1.0f);
-}
-
-// Routed control `sig` of voice b at segment k, offset j, upsampled with half-pixel
-// centers: the left neighbour for the first half of a segment, the right one for
-// the second, both clamped to the signal's ends.
-struct Controls {
-  const float* row;  // routed[b] : [5, tc]
-  int tc;
-  int k_prev, k, k_next;
-  __device__ float at(int sig, float w, bool use_prev) const {
-    const float* f = row + sig * tc;
-    float neighbor = use_prev ? f[k_prev] : f[k_next];
-    return f[k] * (1.0f - w) + neighbor * w;
-  }
-};
-
-__device__ __forceinline__ Controls controls_at(const float* routed, int b, int tc, int seg) {
-  Controls c;
-  c.row = routed + (size_t)b * 5 * tc;
-  c.tc = tc;
-  c.k = min(seg, tc - 1);
-  c.k_prev = max(min(seg - 1, tc - 1), 0);
-  c.k_next = min(seg + 1, tc - 1);
-  return c;
-}
-
-__device__ __forceinline__ float interp_offset(int j, int ratio) {
-  return ((float)j + 0.5f) / (float)ratio - 0.5f;  // in [-0.5, 0.5)
-}
-
-__device__ __forceinline__ float phase_increment(float pitch_mod, float base, float depth,
-                                                 float dphi_scale) {
-  float pre = base + depth * pitch_mod;
-  float midi = fminf(fmaxf(pre, 0.0f), 127.0f);
-  float freq = 440.0f * exp2_accurate((midi - 69.0f) / 12.0f);
-  return dphi_scale * freq;
-}
-
-// Block-wide inclusive scan over the SEG_TILE threads: warp shuffles, then the
-// warp totals added in order. ops/render.py:_tile_inclusive_scan repeats it.
-__device__ __forceinline__ float block_inclusive_scan(float v, float* warp_tot) {
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 1; off < 32; off <<= 1) {
-    float up = __shfl_up_sync(FULL, v, off);
-    if (lane >= off) v = v + up;
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  float prefix = 0.0f;
-  for (int w = 0; w < warp; ++w) prefix = prefix + warp_tot[w];
-  if (warp > 0) v = prefix + v;
-  return v;
-}
+using namespace render;
 
 // Pass 1: per segment, the mean phase increment and the wrapped offset inside its
 // tile; per tile, its wrapped total. Grid (n_tiles, B), block SEG_TILE.
@@ -205,7 +97,8 @@ __global__ void render_audio_kernel(const float* __restrict__ routed,
                                     const float* __restrict__ seg_mean,
                                     const float* __restrict__ seg_offset,
                                     const float* __restrict__ tile_total,
-                                    float* __restrict__ out,  // [B, ta]
+                                    float* __restrict__ out,           // [B, ta]
+                                    float* __restrict__ phase_offset,  // [B, 2, tcp] or null
                                     int tc, int ratio, float dphi_scale) {
   extern __shared__ float buf[];  // this tile's noise, overwritten by its audio
   const int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x;
@@ -227,15 +120,17 @@ __global__ void render_audio_kernel(const float* __restrict__ routed,
   }
   __syncthreads();
 
+  float mean[2], offset[2];
+  for (int o = 0; o < 2; ++o) {
+    size_t i = ((size_t)b * 2 + o) * tcp + seg;
+    mean[o] = seg_mean[i];
+    offset[o] = mod_2pi(seg_offset[i] + carry[o]);
+    if (phase_offset != nullptr) phase_offset[i] = offset[o];
+  }
   if (seg < tc) {
     const Controls ctl = controls_at(routed, b, tc, seg);
     const float* sc = scalars + (size_t)b * 16;
-    float mean[2], offset[2], acc[2] = {0.0f, 0.0f};
-    for (int o = 0; o < 2; ++o) {
-      size_t i = ((size_t)b * 2 + o) * tcp + seg;
-      mean[o] = seg_mean[i];
-      offset[o] = mod_2pi(seg_offset[i] + carry[o]);
-    }
+    float acc[2] = {0.0f, 0.0f};
     const float phase0_1 = sc[2], phase0_2 = sc[5], shape = sc[6], partials = sc[7];
     const float level1 = sc[8], level2 = sc[9], level3 = sc[10];
     float* seg_buf = buf + t * ratio;
@@ -275,12 +170,13 @@ __global__ void render_audio_kernel(const float* __restrict__ routed,
 
 // Launches both passes on `stream`. Pointers are device pointers to contiguous
 // float32 tensors: routed [B, 5, tc], scalars [B, 16], noise and out [B, tc*ratio],
-// seg_mean and seg_offset [B, 2, n_tiles*64], tile_total [B, 2, n_tiles].
-// Returns the cudaError_t of the launches (0 on success).
+// seg_mean and seg_offset [B, 2, n_tiles*64], tile_total [B, 2, n_tiles], and
+// phase_offset [B, 2, n_tiles*64] or null (then no offsets are written). Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int render_fwd_launch(const float* routed, const float* scalars, const float* noise,
                                  float* out, float* seg_mean, float* seg_offset,
-                                 float* tile_total, int batch, int tc, int ratio,
-                                 float dphi_scale, void* stream) {
+                                 float* tile_total, float* phase_offset, int batch, int tc,
+                                 int ratio, float dphi_scale, void* stream) {
   if (batch <= 0 || tc <= 0 || ratio < 1 || ratio > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int n_tiles = (tc + SEG_TILE - 1) / SEG_TILE;
@@ -291,7 +187,8 @@ extern "C" int render_fwd_launch(const float* routed, const float* scalars, cons
   if (err != cudaSuccess) return (int)err;
   const size_t smem = (size_t)SEG_TILE * ratio * sizeof(float);
   render_audio_kernel<<<grid, SEG_TILE, smem, s>>>(routed, scalars, noise, seg_mean, seg_offset,
-                                                   tile_total, out, tc, ratio, dphi_scale);
+                                                   tile_total, out, phase_offset, tc, ratio,
+                                                   dphi_scale);
   return (int)cudaGetLastError();
 }
 

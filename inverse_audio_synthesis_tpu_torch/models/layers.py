@@ -4,7 +4,10 @@
   running statistics updated with flax's momentum convention
   (ra = momentum * ra + (1 - momentum) * batch_stat) and the *biased* batch
   variance, where torch's own BatchNorm uses the unbiased one. The normalized
-  output is cast to ``out_dtype`` (bf16 under ``bn_bf16``).
+  output is cast to ``out_dtype`` (bf16 under ``bn_bf16``). With
+  ``update_stats`` False, train mode normalizes on the batch and leaves the
+  running statistics as they are (flax's train=True with the mutated
+  batch_stats discarded).
 - ``Dropout``: flax's ``where(keep, x / keep_prob, 0)``, drawing its mask from an
   explicit ``torch.Generator`` when one is set.
 - ``lecun_normal_``: flax's default kernel init (truncated normal, fan-in).
@@ -38,6 +41,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = [1, -1] + [1] * (x.dim() - 2)
@@ -47,10 +51,11 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dims)
             mean2 = (xf * xf).mean(dims)
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                    self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight

@@ -55,8 +55,17 @@ class VICRegModule(nn.Module):
         y = self.projector(self.backbone_param(params))
         return x, y
 
+    def embed_audio(self, audio):
+        return self.projector(self.backbone_audio(audio))
+
+    def embed_params(self, params):
+        return self.projector(self.backbone_param(params))
+
     def audio_repr(self, audio):
         return self.backbone_audio(audio)
+
+    def param_repr(self, params):
+        return self.backbone_param(params)
 
 
 def vicreg_loss(

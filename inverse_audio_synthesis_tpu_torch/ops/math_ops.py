@@ -99,7 +99,9 @@ def cos_fast(x: torch.Tensor) -> torch.Tensor:
 
 
 def tanh_fast(x: torch.Tensor) -> torch.Tensor:
-    """tanh(x) = (2^(2x log2 e) - 1) / (2^(2x log2 e) + 1), |x| clipped to 43."""
-    x = torch.clamp(x.float(), -43.0, 43.0)
+    """tanh(x) = (2^(2x log2 e) - 1) / (2^(2x log2 e) + 1), |x| clipped to 43
+    (as jnp.clip: minimum of maximum, half the gradient to each side at a tie)."""
+    x = x.float()
+    x = torch.minimum(torch.maximum(x, x.new_full((), -43.0)), x.new_full((), 43.0))
     y = exp2_accurate(x * _TWO_LOG2E)
     return (y - 1.0) / (y + 1.0)

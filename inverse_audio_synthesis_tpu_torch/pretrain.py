@@ -3,22 +3,40 @@
     python -m inverse_audio_synthesis_tpu_torch.pretrain [vicreg=fast] [dim=64] ... [platform=cpu]
 
 Same config keys and overrides as the JAX package's ``pretrain.py``. Runs on the
-CUDA device; ``platform=cpu`` runs on the CPU. Checkpointing is not in the port
-yet: the run saves no checkpoint.
+CUDA device; ``platform=cpu`` runs on the CPU. Saves checkpoints under
+``<run_dir>/checkpoints/vicreg`` every ``vicreg.checkpoint_every_nbatches`` steps
+and at the end, and resumes from the latest one when rerun.
 """
 
 from __future__ import annotations
 
 import sys
 import time
+from pathlib import Path
 
 import torch
 
+from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
 from inverse_audio_synthesis_tpu_torch.train.pretrain import VicregPretrainTask
 from inverse_audio_synthesis_tpu_torch.train.runsetup import runsetup
 from inverse_audio_synthesis_tpu_torch.utils.config import load_config
 from inverse_audio_synthesis_tpu_torch.utils.logging import MetricsLogger
+
+
+def restore_latest(checkpoint: CheckpointManager, state, what: str):
+    """(state, start step): the latest checkpoint restored into ``state``, or the
+    state as it was and 0 when there is none or it does not load."""
+    start = checkpoint.latest_step()
+    if not start:
+        return state, 0
+    try:
+        state = checkpoint.restore(state)
+    except Exception as e:  # e.g. written by another model configuration
+        print(f"WARNING: could not restore {what} checkpoint step {start} ({e!r}); starting fresh")
+        return state, 0
+    print(f"resuming {what} training from checkpoint step {start}")
+    return state, start
 
 
 def app(cfg) -> int:
@@ -27,33 +45,39 @@ def app(cfg) -> int:
     name = torch.cuda.get_device_name(task.device) if task.device.type == "cuda" else "cpu"
     print(f"device: {task.device} ({name}); render: "
           f"{'fused' if task.fused_render else 'portable render_voice'}")
-    print("checkpointing is not in the PyTorch port yet: this run saves no checkpoint")
     state = task.init_state()
     n_params = sum(p.numel() for p in state.model.parameters())
     print(f"parameters: {n_params}")
 
+    run_dir = Path(cfg.get("run_dir", "runs"))
     logger = MetricsLogger(
-        run_dir=cfg.get("run_dir", "runs"),
+        run_dir=str(run_dir),
         config=cfg.to_dict(),
         use_wandb=cfg.get("log") == "wand",
         run_name="pretrain-torch-" + time.strftime("%Y%m%d-%H%M%S"),
+    )
+    checkpoint = CheckpointManager(
+        directory=str(run_dir / "checkpoints" / "vicreg"),
+        every_n_steps=cfg.vicreg.checkpoint_every_nbatches,
     )
     trainer = Trainer(
         task,
         split,
         logger=logger,
+        checkpoint=checkpoint,
         limit_train_batches=cfg.vicreg.get("limit_train_batches"),
         limit_val_batches=cfg.vicreg.get("limit_val_batches"),
         val_check_interval=cfg.vicreg.get("val_check_interval"),
         log_every=cfg.get("log_every", 50),
     )
+    state, start = restore_latest(checkpoint, state, "vicreg")
     try:
-        trainer.fit(state)
+        trainer.fit(state, start_step=start)
     finally:
         logger.finish()
-    print(f"metrics written to {logger.dir}")
+    print(f"metrics written to {logger.dir}; checkpoints under {checkpoint.dir}")
     if trainer.interrupted is not None:
-        print(f"stopped by signal {trainer.interrupted}")
+        print(f"stopped by signal {trainer.interrupted}; checkpoint saved")
         return 75
     return 0
 

@@ -2,8 +2,10 @@
 
 Counterpart of the JAX package's ``synth/modules.py``: each function maps batched
 natural-unit parameters ([B] tensors) to control-rate [B, Tc] or audio-rate
-[B, Ta] signals. Max and clip are spelled as ``torch.maximum``/``torch.clamp`` on
-values, as the JAX functions spell them.
+[B, Ta] signals. Max and clip against constants are ``maximum``/``clip`` below:
+``torch.maximum``/``torch.minimum`` against 0-dim tensors, which pass half the
+gradient to each side at a tie, as ``jnp.maximum`` and ``jnp.clip`` do
+(``torch.clamp`` passes all of it). The forward values are the same.
 """
 
 from __future__ import annotations
@@ -29,8 +31,18 @@ def midi_to_hz(midi: torch.Tensor) -> torch.Tensor:
     return 440.0 * exp2_accurate((midi - 69.0) / 12.0)
 
 
+def maximum(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """jnp.maximum(x, lo): at x == lo the gradient is split 0.5/0.5."""
+    return torch.maximum(x, torch.full((), lo, dtype=x.dtype, device=x.device))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip(x, lo, hi) = minimum(maximum(x, lo), hi), gradients as JAX's."""
+    return torch.minimum(maximum(x, lo), torch.full((), hi, dtype=x.dtype, device=x.device))
+
+
 def _relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp_min(x, 0.0)
+    return maximum(x, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -44,7 +56,7 @@ def _ramp(n_samples: int, rate: float, duration, alpha, start=None, inverse=Fals
     t = torch.arange(n_samples, dtype=torch.float32, device=duration.device)[None, :]
     dur = (duration * rate)[:, None]
     st = 0.0 if start is None else (start * rate)[:, None]
-    y = torch.clamp((t - st) / torch.clamp_min(dur, _EPS), 0.0, 1.0)
+    y = clip((t - st) / maximum(dur, _EPS), 0.0, 1.0)
     if inverse:
         y = 1.0 - y
     positive = y > 0.0
@@ -58,7 +70,7 @@ def adsr_envelope(
     """Attack/decay/release composed multiplicatively (each phase in [0,1])."""
     attack = torch.minimum(params["attack"], note_on_duration)
     decay = torch.minimum(
-        torch.clamp_min(note_on_duration - params["attack"], 0.0), params["decay"]
+        maximum(note_on_duration - params["attack"], 0.0), params["decay"]
     )
     alpha = params["alpha"]
     attack_sig = _ramp(n_samples, control_rate, attack, alpha)
@@ -85,7 +97,7 @@ def lfo(params: Dict[str, torch.Tensor], rate_mod: torch.Tensor, control_rate: f
     """Rate-modulated LFO: five unit-range shapes blended by normalized,
     exponent-sharpened selection weights. Output in [0, 1]."""
     freq = params["frequency"][:, None]
-    freq = torch.clamp_min(freq + params["mod_depth"][:, None] * rate_mod, 0.0)
+    freq = maximum(freq + params["mod_depth"][:, None] * rate_mod, 0.0)
     argument = torch.cumsum(2.0 * math.pi * freq / control_rate, dim=1)
     argument = argument + params["initial_phase"][:, None]
 
@@ -99,7 +111,7 @@ def lfo(params: Dict[str, torch.Tensor], rate_mod: torch.Tensor, control_rate: f
 
     weights = torch.stack([params[s] for s in LFO_SHAPES], dim=1)  # [B, 5]
     weights = torch.pow(weights, _LFO_SELECTION_EXPONENT)
-    weights = weights / torch.clamp_min(weights.sum(dim=1, keepdim=True), _EPS)
+    weights = weights / maximum(weights.sum(dim=1, keepdim=True), _EPS)
     return torch.einsum("bs,bst->bt", weights, shapes)
 
 
@@ -112,7 +124,7 @@ def _vco_argument(midi_f0, tuning, mod_depth, initial_phase, pitch_mod, sample_r
     """Pitch modulation in MIDI space, clamped to [0, 127], converted to Hz and
     integrated into 2pi-wrapped phase. The increment is freq times one constant
     (2pi/sr rounded once to float32), as in the render kernel."""
-    control_as_midi = torch.clamp(
+    control_as_midi = clip(
         (midi_f0 + tuning)[:, None] + mod_depth[:, None] * pitch_mod, 0.0, 127.0
     )
     freq = midi_to_hz(control_as_midi)
@@ -130,10 +142,10 @@ def sine_vco(params, midi_f0, pitch_mod, sample_rate) -> torch.Tensor:
 
 def squaresaw_partials(midi_f0, tuning, mod_depth) -> torch.Tensor:
     """Band-limit partials constant from the maximum possible pitch."""
-    max_pitch = midi_f0 + tuning + torch.clamp_min(mod_depth, 0.0)
+    max_pitch = midi_f0 + tuning + maximum(mod_depth, 0.0)
     max_f0 = midi_to_hz(max_pitch)
-    denom = max_f0 * torch.log10(torch.clamp_min(max_f0, 1.0 + 1e-6))
-    return 12000.0 / torch.clamp_min(denom, _EPS)
+    denom = max_f0 * torch.log10(maximum(max_f0, 1.0 + 1e-6))
+    return 12000.0 / maximum(denom, _EPS)
 
 
 def square_saw_vco(params, midi_f0, pitch_mod, sample_rate) -> torch.Tensor:

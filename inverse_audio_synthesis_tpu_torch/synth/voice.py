@@ -10,7 +10,10 @@ The control-rate half (``compute_controls``) is plain torch. The audio-rate half
 runs either through ``render_voice`` (plain torch, any geometry) or through the
 fused render (ops/render.py: a CUDA kernel for CUDA tensors, its plain version for
 CPU tensors) where ``fused_render_available`` says the geometry fits.
-``render_voice_auto`` picks between them.
+``render_voice_auto`` picks between them. Both are differentiable in params01:
+the fused render's gradient runs the hand-written backward kernel
+(``bwd="pallas"``, the config value ``torchsynth.render_bwd`` keeps the JAX
+package's name) or autograd of ``render_voice`` (``bwd="jnp"``).
 """
 
 from __future__ import annotations
@@ -119,10 +122,10 @@ def compute_controls(params01: torch.Tensor, config: SynthConfig):
     def env(module: str) -> torch.Tensor:
         return modules.adsr_envelope(p[module], note_on, tc, cr)
 
-    lfo_1 = modules.lfo(p["lfo_1"], env("lfo_1_rate_adsr"), cr) * torch.clamp_min(
+    lfo_1 = modules.lfo(p["lfo_1"], env("lfo_1_rate_adsr"), cr) * modules.maximum(
         env("lfo_1_amp_adsr"), 0.0
     )
-    lfo_2 = modules.lfo(p["lfo_2"], env("lfo_2_rate_adsr"), cr) * torch.clamp_min(
+    lfo_2 = modules.lfo(p["lfo_2"], env("lfo_2_rate_adsr"), cr) * modules.maximum(
         env("lfo_2_amp_adsr"), 0.0
     )
     mods = torch.stack([env("adsr_1"), env("adsr_2"), lfo_1, lfo_2], dim=1)  # [B,4,Tc]
@@ -196,30 +199,65 @@ def fused_render_available(config: SynthConfig) -> bool:
     )
 
 
+RENDER_BWD = ("pallas", "jnp")
+
+
+class _PortableRenderGrad(torch.autograd.Function):
+    """The fused render forward, with the gradient of ``render_voice`` (the JAX
+    package's ``bwd="jnp"``: its backward re-renders the portable path)."""
+
+    @staticmethod
+    def forward(ctx, params01, noise, config):
+        ctx.save_for_backward(params01, noise)
+        ctx.config = config
+        return _render_fused(params01, config, noise)
+
+    @staticmethod
+    def backward(ctx, g):
+        params01, noise = ctx.saved_tensors
+        with torch.enable_grad():
+            p = params01.detach().requires_grad_(True)
+            (gp,) = torch.autograd.grad(render_voice(p, ctx.config, noise), p, g)
+        return gp, None, None
+
+
+def _render_fused(params01, config: SynthConfig, noise) -> torch.Tensor:
+    p, routed, midi_f0 = compute_controls(params01, config)
+    scalars = fused_scalars(p, midi_f0)
+    return render_audio_fused(
+        routed.contiguous(), scalars.contiguous(), noise, float(config.sample_rate)
+    )
+
+
 def render_voice_fused(
-    params01: torch.Tensor, config: SynthConfig, noise: Optional[torch.Tensor] = None
+    params01: torch.Tensor,
+    config: SynthConfig,
+    noise: Optional[torch.Tensor] = None,
+    bwd: str = "pallas",
 ) -> torch.Tensor:
     """Audio through the fused render: the CUDA kernel for CUDA tensors, its plain
-    version for CPU tensors. No gradient flows through it (the pretraining step
-    takes none); ``noise`` rows beyond the batch are ignored, since rows are
-    position-keyed."""
+    version for CPU tensors. Differentiable in params01: ``bwd="pallas"`` runs the
+    render's backward kernel (its plain version on the CPU) and autograd through
+    the control-rate half; ``bwd="jnp"`` takes the gradient of ``render_voice``.
+    ``noise`` rows beyond the batch are ignored, since rows are position-keyed."""
+    if bwd not in RENDER_BWD:
+        raise ValueError(f"render_bwd must be one of {RENDER_BWD}, got {bwd!r}")
     b = params01.shape[0]
-    if noise is None:
-        noise = make_noise(config, params01.device, b)
-    with torch.no_grad():
-        p, routed, midi_f0 = compute_controls(params01, config)
-        scalars = fused_scalars(p, midi_f0)
-        return render_audio_fused(
-            routed.contiguous(), scalars.contiguous(), noise[:b], float(config.sample_rate)
-        )
+    noise = make_noise(config, params01.device, b) if noise is None else noise[:b]
+    if bwd == "jnp" and torch.is_grad_enabled() and params01.requires_grad:
+        return _PortableRenderGrad.apply(params01, noise, config)
+    return _render_fused(params01, config, noise)
 
 
 def render_voice_auto(
-    params01: torch.Tensor, config: SynthConfig, noise: Optional[torch.Tensor] = None
+    params01: torch.Tensor,
+    config: SynthConfig,
+    noise: Optional[torch.Tensor] = None,
+    bwd: str = "pallas",
 ) -> torch.Tensor:
     """The fused render where the geometry allows, else ``render_voice``."""
     if fused_render_available(config):
-        return render_voice_fused(params01, config, noise)
+        return render_voice_fused(params01, config, noise, bwd)
     return render_voice(params01, config, noise)
 
 

@@ -1,0 +1,325 @@
+"""Downstream inverse-synthesis task: frozen VICReg towers -> synth parameter prediction.
+
+Counterpart of the JAX package's ``train/downstream.py``. A trainable head
+(``AudioRepresentationToParams``) maps the frozen audio representation to the 78
+normalized synth parameters. Training objectives (``audio_to_params.loss``):
+
+- ``embedding``: MSE between the frozen param-tower embeddings of the true and the
+  predicted parameters (gradient through the frozen param tower and projector);
+- ``param_mse``: MSE against the true parameters;
+- ``mel_l1``: mel-L1 between the true audio and the audio rendered from the
+  predicted parameters, backpropagated through the synth: the fused render's
+  backward kernel (``torchsynth.render_bwd: pallas``) or autograd of the portable
+  render (``jnp``). ``mel_rows`` takes the term on the leading rows only;
+  ``mel_chunk`` evaluates it exactly in row chunks under
+  ``torch.utils.checkpoint``, so the backward holds one chunk's residuals at a time;
+- ``combined``: ``sum_i w_i * component_i`` with ``audio_to_params.loss_weights``
+  (a zero weight drops its component).
+
+The predicted parameters are cast to float32 before the render, and the render and
+the mel term never run under bf16 autocast. The frozen towers are a copy of the
+pretrained model that nothing updates: ``frozen_bn: running`` uses them in eval
+mode; ``frozen_bn: batch`` normalizes each BatchNorm on the current batch, leaves
+the running statistics untouched and turns dropout off.
+
+The test pass resynthesizes from the predicted parameters and reports the fp32
+test mel-L1, the multi-resolution STFT loss and the parameter MAE beside their
+trivial-baseline floors (constant-0.5 parameters, silence).
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.utils.checkpoint
+
+from inverse_audio_synthesis_tpu_torch.models.audio_to_params import AudioRepresentationToParams
+from inverse_audio_synthesis_tpu_torch.models.layers import BatchNorm, Dropout
+from inverse_audio_synthesis_tpu_torch.ops.stft import METHODS as STFT_METHODS
+from inverse_audio_synthesis_tpu_torch.ops.stft import MelSpectrogram, multi_resolution_stft_loss
+from inverse_audio_synthesis_tpu_torch.synth import prng
+from inverse_audio_synthesis_tpu_torch.synth.voice import (
+    RENDER_BWD,
+    fused_render_available,
+    make_noise,
+    render_voice_auto,
+    sample_voice_params,
+)
+from inverse_audio_synthesis_tpu_torch.train.optim import make_optimizer
+from inverse_audio_synthesis_tpu_torch.train.pretrain import (
+    TrainState,
+    VicregPretrainTask,
+    check_supported,
+    synth_config_from_cfg,
+)
+
+log = logging.getLogger(__name__)
+
+LOSSES = ("embedding", "param_mse", "mel_l1", "combined")
+DEFAULT_LOSS_WEIGHTS = {"param_mse": 1.0, "mel_l1": 0.1}
+
+
+class AudioToParamsTask:
+    """Owns the frozen towers, the head's configs, the noise buffer and the
+    train/test steps."""
+
+    def __init__(self, cfg, pretrain_task: VicregPretrainTask, pretrain_state: TrainState):
+        check_supported(cfg)
+        a2p = cfg.audio_to_params
+        self.cfg = cfg
+        self.device = pretrain_task.device
+        frozen_bn = a2p.get("frozen_bn", "running")
+        if frozen_bn not in ("running", "batch"):
+            raise ValueError(f"audio_to_params.frozen_bn must be running or batch, got {frozen_bn!r}")
+        self.loss_kind = a2p.get("loss", "embedding")
+        if self.loss_kind not in LOSSES:
+            raise ValueError(f"audio_to_params.loss must be one of {LOSSES}, got {self.loss_kind!r}")
+        self.loss_weights = dict(a2p.get("loss_weights") or DEFAULT_LOSS_WEIGHTS)
+        self.render_bwd = cfg.torchsynth.get("render_bwd", "pallas")
+        if self.render_bwd not in RENDER_BWD:
+            raise ValueError(f"torchsynth.render_bwd must be one of {RENDER_BWD}, got {self.render_bwd!r}")
+
+        # the frozen towers: the task's own copy, never updated (the copy draws no
+        # dropout masks, so it takes no generator along)
+        dropouts = [m for m in pretrain_state.model.modules() if isinstance(m, Dropout)]
+        generators = [m.generator for m in dropouts]
+        for m in dropouts:
+            m.generator = None
+        try:
+            self.frozen = copy.deepcopy(pretrain_state.model).requires_grad_(False)
+        finally:
+            for m, gen in zip(dropouts, generators):
+                m.generator = gen
+        if frozen_bn == "batch":
+            for m in self.frozen.modules():
+                if isinstance(m, BatchNorm):
+                    m.update_stats = False
+                if isinstance(m, Dropout):
+                    m.rate = 0.0
+        self.frozen.train(frozen_bn == "batch")
+
+        self.synth = synth_config_from_cfg(cfg, a2p.batch_size)
+        self._bf16 = cfg.get("precision") == "bf16"
+        self._grads_bf16 = self._bf16 and bool(cfg.get("grads_bf16", False))
+        self._noise = make_noise(self.synth, self.device)
+        self.fused_render = fused_render_available(self.synth)
+
+        # every mel.method is the same float32 transform here (ops/stft.py), so the
+        # training and test terms share one; test_method is checked all the same
+        m = cfg.mel
+        self._test_spectral_method = m.get("test_method", m.get("method", "fft"))
+        if self._test_spectral_method not in STFT_METHODS:
+            raise ValueError(f"mel.test_method must be one of {STFT_METHODS}, got {self._test_spectral_method!r}")
+        self.mel = MelSpectrogram(
+            sample_rate=cfg.torchsynth.rate, n_fft=m.n_fft, hop_length=m.hop_length,
+            n_mels=m.n_mels, norm=m.norm, mel_scale=m.mel_scale, power=m.power,
+            method=m.get("method", "fft"),
+        )
+        self._warn_if_frozen_embedding_collapsed()
+
+    def _uses_embedding(self) -> bool:
+        if self.loss_kind == "combined":
+            return bool(self.loss_weights.get("embedding"))
+        return self.loss_kind == "embedding"
+
+    def _warn_if_frozen_embedding_collapsed(self) -> None:
+        """Warn at init when the frozen projected param embedding barely separates
+        different parameter vectors under the BatchNorm mode in use (the eval-mode
+        collapse of large-batch pretrains; row-MSE threshold 1e-5): the embedding
+        objective then has almost no signal."""
+        if not self._uses_embedding():
+            return
+        probe = prng.uniform(prng.prng_key(0), (8, self.cfg.nparams), device=self.device)
+        with torch.no_grad():
+            emb = self._embed_params(probe).float()
+        row_mse = float(torch.mean((emb[:4] - emb[4:]) ** 2))
+        if row_mse < 1e-5:
+            log.warning(
+                "frozen projected-param-embedding row-MSE is %.3e (<1e-5): the embedding "
+                "objective has (almost) no signal under the current BatchNorm mode; set "
+                "`audio_to_params.frozen_bn: batch` to normalize the frozen towers on the batch.",
+                row_mse,
+            )
+
+    # -- state -------------------------------------------------------------------
+    def init_state(self) -> TrainState:
+        a2p = self.cfg.audio_to_params
+        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        with torch.device(self.device):
+            head = AudioRepresentationToParams(
+                nparams=self.cfg.nparams, dim=self.cfg.dim, hidden_norm=a2p.hidden_norm,
+                dropout=a2p.dropout, generator=gen,
+            )
+        dropout_gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 2)
+        for m in head.modules():
+            if isinstance(m, Dropout):
+                m.generator = dropout_gen
+        optimizer, self.schedule = make_optimizer(
+            a2p.optim, a2p.batch_size, list(head.parameters()), a2p.get("scheduler")
+        )
+        return TrainState(0, head, optimizer)
+
+    # -- frozen towers -----------------------------------------------------------
+    def _autocast(self):
+        return torch.autocast(device_type=self.device.type, dtype=torch.bfloat16, enabled=self._bf16)
+
+    def _audio_repr(self, audio):
+        with self._autocast():
+            return self.frozen.audio_repr(audio)
+
+    def _embed_params(self, params01):
+        with self._autocast():
+            return self.frozen.embed_params(params01)
+
+    def _project_repr(self, repr_):
+        with self._autocast():
+            return self.frozen.projector(repr_)
+
+    def _render(self, params01: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        return render_voice_auto(params01.float(), self.synth, noise, bwd=self.render_bwd)
+
+    def synthesize(self, batch_num: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(audio [B, 1, Ta], params01 [B, 78]) for a batch number."""
+        params01 = sample_voice_params(batch_num, self.synth, self.device)
+        with torch.no_grad():
+            audio = render_voice_auto(params01, self.synth, noise=self._noise)
+        return audio[:, None, :], params01
+
+    def _shared(self, head, audio, params01, with_pred_emb: bool):
+        """(pred_params, repr_loss or None, frozen_loss): the frozen VICReg loss of
+        the true pair is a diagnostic; the embedding loss is taken only when asked."""
+        with torch.no_grad():
+            audio_repr = self._audio_repr(audio)
+            true_emb = self._embed_params(params01).float()
+            frozen_loss = torch.mean((true_emb - self._project_repr(audio_repr).float()) ** 2)
+        with self._autocast():
+            pred_params = head(audio_repr.float())
+        repr_loss = None
+        if with_pred_emb:
+            pred_emb = self._embed_params(pred_params).float()
+            repr_loss = torch.mean((true_emb - pred_emb) ** 2)
+        return pred_params, repr_loss, frozen_loss
+
+    # -- steps -------------------------------------------------------------------
+    def _mel_l1(self, pred_params, true_audio, noise) -> torch.Tensor:
+        pred_audio = self._render(pred_params, noise)
+        m = self.mel(torch.stack([pred_audio, true_audio]))
+        return torch.mean(torch.abs(m[0] - m[1]))
+
+    def _mel_l1_component(self, pred_params, audio) -> torch.Tensor:
+        """The grad-through-synth term, on ``mel_rows`` leading rows if set, in
+        ``mel_chunk`` row chunks under activation checkpointing if set. Each chunk
+        renders with its own (position-keyed) noise rows, and chunks are equal, so
+        the mean of chunk means is the unchunked mean."""
+        a2p = self.cfg.audio_to_params
+        pp, ta = pred_params, audio[:, 0, :]
+        rows = a2p.get("mel_rows")
+        if rows and rows < pp.shape[0]:
+            pp, ta = pp[:rows], ta[:rows]
+        b = pp.shape[0]
+        nz = self._noise[:b]
+        chunk = a2p.get("mel_chunk")
+        if chunk and chunk < b:
+            if b % chunk:
+                raise ValueError(f"mel_chunk={chunk} must divide the mel-term batch {b}")
+            vals = [
+                torch.utils.checkpoint.checkpoint(
+                    self._mel_l1, pp[i : i + chunk], ta[i : i + chunk], nz[i : i + chunk],
+                    use_reentrant=False,
+                )
+                for i in range(0, b, chunk)
+            ]
+            return torch.mean(torch.stack(vals))
+        return self._mel_l1(pp, ta, nz)
+
+    def train_step(self, state: TrainState, batch_num: int) -> Tuple[TrainState, Dict[str, Any]]:
+        head = state.model
+        head.train()
+        audio, params01 = self.synthesize(batch_num)
+        pred_params, repr_loss, frozen_loss = self._shared(
+            head, audio, params01, with_pred_emb=self._uses_embedding()
+        )
+        components = {
+            "mel_l1": lambda: self._mel_l1_component(pred_params, audio),
+            "param_mse": lambda: torch.mean((pred_params.float() - params01) ** 2),
+            "embedding": lambda: repr_loss,
+        }
+        aux = {}
+        if self.loss_kind == "combined":
+            loss = torch.zeros((), device=self.device)
+            for name, w in self.loss_weights.items():
+                if not w:
+                    continue
+                value = components[name]()
+                aux[name] = value
+                loss = loss + w * value
+        else:
+            loss = components[self.loss_kind]()
+        params = state.optimizer.params
+        grads = torch.autograd.grad(loss, params)
+        if self._grads_bf16:
+            grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
+        state.optimizer.step(list(grads))
+        state.step += 1
+        metrics = {
+            "audio_to_params/train/loss": loss.detach(),
+            "audio_to_params/train/frozen_vicreg_loss": frozen_loss,
+        }
+        for name, value in aux.items():
+            metrics[f"audio_to_params/train/{name}"] = value.detach()
+        return state, metrics
+
+    @torch.no_grad()
+    def test_metrics(self, true_audio, params01, pred_params) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Resynthesis from the predicted parameters and the test metrics, each
+        beside its trivial-baseline floor. Returns (metrics, pred_audio)."""
+        pred_audio = self._render(pred_params, self._noise)
+        mels = self.mel(torch.stack([pred_audio, true_audio]))
+        mrstft, mrstft_silence = multi_resolution_stft_loss(
+            pred_audio, true_audio, method=self._test_spectral_method, return_silence_baseline=True
+        )
+        pred_params = pred_params.float()
+        metrics = {
+            "audio_to_params/test/mel_l1": torch.mean(torch.abs(mels[0] - mels[1])),
+            "audio_to_params/test/mrstft": mrstft,
+            "audio_to_params/test/param_mae": torch.mean(torch.abs(pred_params - params01)),
+            "audio_to_params/baseline/param_mae_const05": torch.mean(torch.abs(0.5 - params01)),
+            "audio_to_params/baseline/mel_l1_silence": torch.mean(torch.abs(mels[1])),
+            "audio_to_params/baseline/mrstft_silence": mrstft_silence,
+            # [nparams] vectors, written by the CLI as a CSV
+            "audio_to_params/test/param_mae_per_param": torch.mean(torch.abs(pred_params - params01), 0),
+            "audio_to_params/baseline/param_mae_per_param_const05": torch.mean(
+                torch.abs(0.5 - params01), 0
+            ),
+        }
+        return metrics, pred_audio
+
+    @torch.no_grad()
+    def test_step(self, state: TrainState, batch_num: int):
+        """(metrics, true_audio [B, Ta], pred_audio [B, Ta]) for a test batch."""
+        head = state.model
+        head.eval()
+        audio, params01 = self.synthesize(batch_num)
+        pred_params, repr_loss, frozen_loss = self._shared(head, audio, params01, with_pred_emb=True)
+        true_audio = audio[:, 0, :]
+        metrics, pred_audio = self.test_metrics(true_audio, params01, pred_params)
+        metrics = {
+            "audio_to_params/test/loss": repr_loss,
+            "audio_to_params/test/frozen_vicreg_loss": frozen_loss,
+            **metrics,
+        }
+        return metrics, true_audio, pred_audio
+
+    def log_audio_triplets(self, logger, true_audio, pred_audio, batch_idx, n: int = 16):
+        """true | half a second of silence | predicted, for the first ``n`` voices."""
+        rate = self.cfg.torchsynth.rate
+        silence = np.zeros(rate // 2, dtype=np.float32)
+        for i in range(min(n, true_audio.shape[0])):
+            clip = np.concatenate([
+                true_audio[i].float().cpu().numpy(), silence, pred_audio[i].float().cpu().numpy()
+            ])
+            logger.log_audio(f"audio-test/{batch_idx}/{i}", clip, rate)

@@ -5,8 +5,9 @@ batch-number stream with ``limit_train_batches``, ``limit_val_batches``,
 ``val_check_interval`` and metric logging every ``log_every`` steps. Non-finite
 updates are rejected on the device at every step (train/optim.py); the counter
 and the metrics are fetched, and raised on, only at log cadence, so the loop
-does not wait for the device between log steps. Checkpointing is not in the port
-yet: ``fit`` saves nothing.
+does not wait for the device between log steps. With a ``CheckpointManager``,
+``fit`` saves on its cadence (asynchronously), on preemption and at the end
+(``save_last``), and resumes from ``start_step``, as the JAX ``Trainer`` does.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.runsetup import BatchNumberSplit
 
 
@@ -56,6 +58,7 @@ class Trainer:
         task,
         split: BatchNumberSplit,
         logger=None,
+        checkpoint: Optional[CheckpointManager] = None,
         limit_train_batches: Optional[int] = None,
         limit_val_batches: Optional[int] = None,
         val_check_interval: Optional[int] = None,
@@ -64,6 +67,7 @@ class Trainer:
         self.task = task
         self.split = split
         self.logger = logger
+        self.checkpoint = checkpoint
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
         self.val_check_interval = val_check_interval
@@ -103,7 +107,10 @@ class Trainer:
         i = start_step
         while i < n_train:
             if guard.requested is not None:
+                # finish the step, then stop with a resumable checkpoint
                 self.interrupted = guard.requested
+                if self.checkpoint is not None:
+                    self.checkpoint.save(state, i)
                 self._log({"preempted_by_signal": float(guard.requested)}, step=i)
                 return state
             state, metrics = self.task.train_step(state, self.split.train_batch_num(i))
@@ -130,4 +137,8 @@ class Trainer:
                 self._log(metrics, step=i - 1)
             if self.val_check_interval and i % self.val_check_interval == 0:
                 self._log(self.validate(state), step=i - 1)
+            if self.checkpoint is not None:
+                self.checkpoint.maybe_save(state, i)
+        if self.checkpoint is not None:
+            self.checkpoint.save(state, n_train)  # save_last
         return state

@@ -23,7 +23,7 @@ Plain torch, one small group of ops per parameter tensor; the norms go through
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Iterable, List, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Tuple, Union
 
 import torch
 
@@ -156,6 +156,15 @@ class FusedLars:
         for p, u in zip(self.params, self.updates(grads)):
             p.add_(u.to(p.dtype))
 
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The schedule count and the non-finite counter (zero momentum: no other
+        state)."""
+        return {"count": self.count, "total_notfinite": self.total_notfinite}
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        self.count.copy_(state["count"])
+        self.total_notfinite.copy_(state["total_notfinite"])
+
 
 class Sgd:
     """Plain SGD (zero momentum) with the same guard and interface as FusedLars."""
@@ -179,6 +188,8 @@ class Sgd:
         return out
 
     step = FusedLars.step
+    state_dict = FusedLars.state_dict
+    load_state_dict = FusedLars.load_state_dict
 
 
 def make_optimizer(

@@ -197,3 +197,72 @@ def test_render_voice_matches_jax(geometry):
     assert np.isfinite(got).all()
     assert np.abs(got - ref).max() < 0.08
     assert _rel_rms(ref, got) < 0.01
+
+
+# -- gradients at exact ties: split as JAX splits them ---------------------------------
+
+
+def _attack_tie_params(batch: int = 4):
+    """params01 whose adsr_1 attack, in control steps, is an integer k exactly in
+    both packages: the attack ramp (t - 0) / (attack * rate) reaches 1.0 exactly at
+    t = k, a tie of the clip's upper bound, and the decay ramp starts exactly at 0
+    there, a tie of its lower bound. Both feed the attack's gradient."""
+    specs = [(s.module, s.name) for s in tvoice.VOICE_PARAM_SPECS]
+    i_att, i_dur = specs.index(("adsr_1", "attack")), specs.index(("keyboard", "duration"))
+    spec = tvoice.VOICE_PARAM_SPECS[i_att]
+    jspec = jvoice.VOICE_PARAM_SPECS[i_att]
+    for k in range(37, 300):
+        s = np.float32(np.float32(k) / np.float32(441.0)) / np.float32(2.0)
+        for x in (np.float32(s * s) + np.float32(d) * np.spacing(np.float32(s * s)) for d in (0, 1, -1, 2, -2)):
+            xa = np.array([x], np.float32)
+            a_t = tparameter.from_0to1(spec, torch.from_numpy(xa))
+            a_j = np.asarray(jparameter.from_0to1(jspec, jnp.asarray(xa)))
+            if (a_t * 441.0).item() == k and float(np.float32(a_j[0] * np.float32(441.0))) == k:
+                p = np.random.RandomState(k).rand(batch, 78).astype(np.float32)
+                p[:, i_att] = x
+                p[:, i_dur] = 0.95  # note held well past the attack
+                return p, k
+    raise AssertionError("no exact attack tie found")
+
+
+def test_compute_controls_grad_splits_ties_as_jax():
+    """Exact ties in the ADSR clips: jnp.clip passes half the gradient to each side
+    at a tie; torch.clamp passed all of it, which made the attack's gradient differ.
+    The port now spells clip and max as minimum/maximum against tensors. The
+    gradient of sum(routed * cot) with respect to params01, against jax.grad:
+    measured max-relative 2e-6 without ties, held at 1e-4; a tie spelled as clamp
+    moves the attack column by about 1/k (k ~ 40 control steps)."""
+    p, k = _attack_tie_params()
+    cfg = SynthConfig(batch_size=4, buffer_size_seconds=1.0)
+    jcfg = JSynthConfig(batch_size=4, buffer_size_seconds=1.0)
+    cot = np.random.RandomState(1).randn(4, 5, cfg.control_buffer_size).astype(np.float32)
+
+    def jloss(q):
+        return jnp.sum(jvoice.compute_controls(q, jcfg)[1] * jnp.asarray(cot))
+
+    ref = np.asarray(jax.grad(jloss)(jnp.asarray(p)))
+    q = torch.from_numpy(p).requires_grad_()
+    (got,) = torch.autograd.grad((tvoice.compute_controls(q, cfg)[1] * torch.from_numpy(cot)).sum(), q)
+    got = got.numpy()
+    # forward values stay bit-compatible with the clamp spelling
+    _, routed, _ = tvoice.compute_controls(torch.from_numpy(p), cfg)
+    np.testing.assert_allclose(routed.numpy(), np.asarray(jvoice.compute_controls(jnp.asarray(p), jcfg)[1]),
+                               rtol=0, atol=2e-5)
+    assert np.isfinite(got).all() and k > 0
+    assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-4
+    i_att = [(s.module, s.name) for s in tvoice.VOICE_PARAM_SPECS].index(("adsr_1", "attack"))
+    col = np.abs(got[:, i_att] - ref[:, i_att]).max() / np.abs(ref[:, i_att]).max()
+    assert col <= 1e-4, col
+
+
+def test_maximum_and_clip_split_ties():
+    from inverse_audio_synthesis_tpu_torch.synth import modules as tmodules
+
+    x = torch.tensor([0.0, 1.0, -1.0, 2.0], requires_grad=True)
+    (gm,) = torch.autograd.grad(tmodules.maximum(x, 0.0).sum(), x)
+    (gc,) = torch.autograd.grad(tmodules.clip(x, 0.0, 1.0).sum(), x)
+    jx = jnp.array([0.0, 1.0, -1.0, 2.0])
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(jax.grad(lambda v: jnp.maximum(v, 0.0).sum())(jx)))
+    np.testing.assert_array_equal(gc.numpy(), np.asarray(jax.grad(lambda v: jnp.clip(v, 0.0, 1.0).sum())(jx)))
+    np.testing.assert_array_equal(tmodules.clip(x, 0.0, 1.0).detach().numpy(),
+                                  torch.clamp(x, 0.0, 1.0).detach().numpy())
