@@ -51,14 +51,15 @@ PEAK_F32_FLOP_PER_S = 67e12
 # controls 16, per oscillator 32 (pitch 6, exp2 18, increment 2, phase 6) x 2,
 # two sincos reductions 27 x 2, tanh 27, square/saw morph 6, VCAs and mix 11
 RENDER_FLOPS_PER_SAMPLE = 182
-# float32 operations per audio sample of the render's backward, counted once
-# (csrc/render_bwd.cu): the forward recompute up to the oscillators and VCAs 171
-# (the render's 182 less the mix); the VCA, oscillator and mixer cotangents 46
-# (VCO 1 9, VCO 2 30, noise 7); their per-segment sums 25 (7 scalar adds, 3 x 3
-# upsample weights by multiply-add, 3 weights); per oscillator in the backward
-# walk 46 (control 4, suffix 2, pre-clip pitch 2, increment 24, mask 3, chain 3,
-# scalar sums 3, upsample weights 5) x 2, and the walk's interpolation weights 4
-RENDER_BWD_FLOPS_PER_SAMPLE = 171 + 46 + 25 + 2 * 46 + 4
+# float32 operations per audio sample of the render's backward, each value counted
+# once however often the kernel recomputes it (csrc/render_bwd.cu): the forward
+# recompute up to the oscillators and VCAs 171 (the render's 182 less the mix); the
+# VCA, oscillator and mixer cotangents 46 (VCO 1 9, VCO 2 30, noise 7); their
+# per-segment sums 25 (7 scalar adds, 3 x 3 upsample weights by multiply-add, 3
+# weights); per oscillator in the backward walk 16 (suffix 2, mask 3, chain 3,
+# scalar sums 3, upsample weights 5) x 2. The walk's controls, pre-clip pitch,
+# increments and interpolation weights are the forward recompute's values again.
+RENDER_BWD_FLOPS_PER_SAMPLE = 171 + 46 + 25 + 2 * 16
 PHASE_TOLERANCE = {"max_abs": 2e-3, "rel_rms": 1e-4}
 # K2 against its plain version and against autograd: the JAX package's bounds
 # for its backward (tests/test_pallas_render.py), per signal / scalar column

@@ -30,8 +30,8 @@ import math
 import os
 import shutil
 import subprocess
-import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -103,6 +103,21 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _nvcc(nvcc: str, name: str, out: Path) -> None:
+    """Build ``csrc/<name>.cu`` into ``out`` (written under a temporary name, then
+    renamed), keeping nvcc's output beside it as ``<out>.log``."""
+    tmp = out.with_name(f"{out.name}.tmp-{os.getpid()}")
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc {SOURCES[name].name} failed ({proc.returncode}):\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, out)
+
+
 def build_render_libraries(names=tuple(SOURCES)) -> Dict[str, Path]:
     """Compile each named ``csrc/<name>.cu`` with nvcc into a shared library under
     ``build/kernels``, one nvcc process per source, all started together, and
@@ -117,33 +132,9 @@ def build_render_libraries(names=tuple(SOURCES)) -> Dict[str, Path]:
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the render kernels are built on a machine with the CUDA toolkit")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    try:
-        for name in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(SOURCES[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-            jobs[name] = (proc, tmp)
-        failed = []
-        for name, (proc, tmp) in jobs.items():
-            log = proc.communicate()[0]
-            if proc.returncode != 0:
-                failed.append(f"nvcc {SOURCES[name].name} failed ({proc.returncode}):\n{log}")
-                continue
-            out[name].with_suffix(".log").write_text(log)
-            os.replace(tmp, out[name])
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    finally:
-        for proc, tmp in jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+    with ThreadPoolExecutor(len(todo)) as pool:
+        for job in [pool.submit(_nvcc, nvcc, name, out[name]) for name in todo]:
+            job.result()
     return out
 
 

@@ -120,13 +120,22 @@ class CheckpointManager:
 
     def restore(self, state):
         """Load the latest checkpoint into ``state`` in place (model and optimizer
-        tensors keep their devices) and return it."""
+        tensors keep their devices) and return it. If any part fails to load,
+        ``state`` is put back as it was before the error propagates, as the JAX
+        package's functional restore leaves the fresh state intact."""
         step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint found under {self.dir}")
         payload = torch.load(self._step_dir(step) / "state.pt", map_location="cpu",
                              weights_only=True)
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
-        state.step = int(payload["step"])
+        model_before = _host_copy(state.model.state_dict())
+        optimizer_before = _host_copy(state.optimizer.state_dict())
+        try:
+            state.model.load_state_dict(payload["model"])
+            state.optimizer.load_state_dict(payload["optimizer"])
+            state.step = int(payload["step"])
+        except Exception:
+            state.model.load_state_dict(model_before)
+            state.optimizer.load_state_dict(optimizer_before)
+            raise
         return state

@@ -304,6 +304,34 @@ def test_checkpoint_round_trip_keep_and_last(tmp_path):
         CheckpointManager(str(tmp_path / "empty")).restore(fresh)
 
 
+@pytest.mark.parametrize("broken", ["optimizer", "model"])
+def test_failed_restore_leaves_the_state_untouched(tmp_path, broken):
+    """A checkpoint whose optimizer part (loaded after the model) or one model
+    tensor does not load: restore raises, and the fresh state keeps every one of
+    its own values."""
+    task, state = _port_pretrain(TINY)
+    state, _ = task.train_step(state, 3)
+    ckpt = CheckpointManager(str(tmp_path / "ck"))
+    ckpt.save(state, 1)
+    path = tmp_path / "ck" / "step_000000000001" / "state.pt"
+    payload = torch.load(path, weights_only=True)
+    if broken == "optimizer":
+        del payload["optimizer"]["total_notfinite"]  # count loads, then the load fails
+    else:
+        key = next(k for k, v in payload["model"].items() if v.dim() == 2)
+        payload["model"][key] = payload["model"][key][:, :1]  # the other tensors load
+    torch.save(payload, path)
+    _, fresh = _port_pretrain(TINY)
+    before = {k: v.clone() for k, v in fresh.model.state_dict().items()}
+    count_before = fresh.optimizer.count.clone()
+    with pytest.raises((KeyError, RuntimeError)):
+        ckpt.restore(fresh)
+    assert fresh.step == 0 and torch.equal(fresh.optimizer.count, count_before)
+    for k, v in fresh.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    assert any(not torch.equal(a, b) for a, b in zip(state.model.state_dict().values(), before.values()))
+
+
 def test_trainer_resumes_from_checkpoint(tmp_path):
     """Four steps in one run equal two steps, a checkpoint, and two more steps
     resumed into a fresh state from it."""

@@ -10,6 +10,8 @@ run where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_render.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -123,6 +125,40 @@ def test_tile_scan_is_an_inclusive_prefix():
 
 def test_dphi_scale_rounds_once():
     assert R.dphi_scale(44100.0) == float(np.float32(2.0 * np.pi / 44100.0))
+
+
+_FAKE_NVCC = """#!/bin/sh
+while [ "$#" -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done
+echo run >> "{calls}"
+echo "ptxas info    : Used 40 registers"
+printf lib > "$out"
+exit {rc}
+"""
+
+
+@pytest.mark.parametrize("rc", [0, 3])
+def test_build_runs_one_nvcc_per_source(tmp_path, monkeypatch, rc):
+    """The build with a stand-in nvcc on PATH: one process per source, each
+    library renamed into place beside its log and reused by the next build; a
+    failing nvcc raises with its output and leaves no file behind."""
+    bin_dir, build = tmp_path / "bin", tmp_path / "kernels"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(calls=tmp_path / "calls", rc=rc))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}:{os.environ['PATH']}")
+    monkeypatch.setattr(R, "BUILD_DIR", build)
+    if rc:
+        with pytest.raises(RuntimeError, match="nvcc render_fwd.cu failed"):
+            R.build_render_libraries()
+        assert list(build.iterdir()) == []
+        return
+    libs = R.build_render_libraries()
+    assert set(libs) == {"render_fwd", "render_bwd"}
+    for lib in libs.values():
+        assert lib.read_text() == "lib" and "registers" in lib.with_suffix(".log").read_text()
+    assert R.build_render_libraries() == libs
+    assert (tmp_path / "calls").read_text().count("run") == 2
 
 
 @pytest.mark.cuda
