@@ -6,12 +6,17 @@
 Phases, each printing its own lines:
   1. device and build: the card's name and power limit, then both render kernels
      built with nvcc from csrc/render_fwd.cu and csrc/render_bwd.cu (sm_90a), one
-     nvcc process each, started together;
+     nvcc process each, started together; each kernel's registers, shared memory
+     and spills (ptxas), resident blocks per SM and instructions per sample slot
+     (cuobjdump -sass) at the 4 s voices' ratio; the
+     card's exhaustive check that the kernels' division, remainder and floor
+     sequences equal IEEE division, fmodf and floorf on their domains;
   2. the forward render kernel (K1) against its plain version on the card (4 s
      voices, batch 16, 128 and 1024, params and noise from the port's own
      sample_voice_params/noise), with its saved phase offsets bit-identical to
-     the plain version's, and the times of both (CUDA events, median over
-     launches with the L2 cache flushed before each);
+     the plain version's and a second launch bit-identical to the first, and the
+     times of both beside the bound (CUDA events, median over launches with the
+     L2 cache flushed before each);
   3. the render backward kernel (K2) against its plain version at batch 128 and
      1024 (d_routed within 5e-4 and d_scalars within 1e-4 of each signal's and
      column's largest value), against autograd of the plain forward at batch 16
@@ -36,6 +41,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -46,8 +53,8 @@ from pathlib import Path
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
-# float32 operations per audio sample in one evaluation of the render
-# (csrc/render_fwd.cu:render_audio_kernel): interpolation offset 4, five upsampled
+# float32 operations per audio sample in one evaluation of the render, each value
+# counted once (csrc/render_fwd.cu): interpolation offset 4, five upsampled
 # controls 16, per oscillator 32 (pitch 6, exp2 18, increment 2, phase 6) x 2,
 # two sincos reductions 27 x 2, tanh 27, square/saw morph 6, VCAs and mix 11
 RENDER_FLOPS_PER_SAMPLE = 182
@@ -139,6 +146,24 @@ def render_bwd_bound_ms(routed, noise, seg_mean) -> tuple[float, str]:
     return bound_ms(nbytes, RENDER_BWD_FLOPS_PER_SAMPLE * b * ta)
 
 
+def sass_per_slot(lib: Path, run: int) -> dict:
+    """Instructions of the render kernel instantiated for runs of ``run`` samples in
+    the library's SASS (cuobjdump), per sample slot of a run: all of them, and the
+    float32 multiplies, adds and FMAs among them. The count is static: each block's
+    one-time prologue and warp 0's carry code are included once."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    for function in sass.split("Function : ")[1:]:
+        if f"_kernelILi{run}E" not in function.split("\n", 1)[0]:
+            continue
+        instruction = r"/\*[0-9a-f]{4,5}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)"
+        ops = [m.group(1) for m in re.finditer(instruction, function)]
+        fp = sum(op in ("FADD", "FMUL", "FFMA") for op in ops)
+        return {"sass_per_slot": round(len(ops) / run, 1), "fp32_per_slot": round(fp / run, 1)}
+    raise AssertionError(f"no run-{run} kernel in the SASS of {lib.name}")
+
+
 def phase_render() -> dict:
     import torch
 
@@ -168,7 +193,12 @@ def phase_render() -> dict:
             f"(audio, means, offsets): {diffs}")
         if any(d != 0.0 for d in diffs):
             raise AssertionError("the render kernel with saved offsets is not bit-identical to its plain version")
-        del saved_k, saved_p
+        saved_k2 = R.render_audio_fused(routed, scalars, noise, sr, save_phase=True)
+        repeat = all(torch.equal(a, b) for a, b in zip(saved_k, saved_k2))
+        log(f"[render] B={batch} a second launch is bit-identical: {repeat}")
+        if not repeat:
+            raise AssertionError("the render kernel does not repeat bit for bit")
+        del saved_k, saved_p, saved_k2
         if batch <= 128:  # the portable render within the JAX package's render bound
             ref = render_voice(params01, cfg, noise)
             pe = (out_k - ref).abs()
@@ -183,7 +213,7 @@ def phase_render() -> dict:
                                 reps=20 if batch <= 128 else 3, warmup=1)
         b_ms, bound_by = render_bound_ms(routed, noise)
         log(f"[render] B={batch} kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
-            f"bound {b_ms:.4f} ms ({bound_by})")
+            f"bound {b_ms:.4f} ms ({bound_by}), {100 * b_ms / ms:.1f}% of the bound")
         result[batch] = dict(max_abs_err=max_abs, rel_rms=rel_rms, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=bound_by)
         del noise, routed, scalars
@@ -245,7 +275,7 @@ def phase_render_bwd() -> dict:
         )
         b_ms, bound_by = render_bwd_bound_ms(routed, noise, seg_mean)
         log(f"[render_bwd] B={batch} kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
-            f"bound {b_ms:.4f} ms ({bound_by})")
+            f"bound {b_ms:.4f} ms ({bound_by}), {100 * b_ms / ms:.1f}% of the bound")
         result[batch] = dict(max_abs_err=max_abs, rel_d_routed=max(r), rel_d_scalars=max(s),
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=bound_by)
         del g, seg_mean, offset, dr_k, ds_k, noise, routed, scalars
@@ -440,10 +470,20 @@ def main() -> int:
     t0 = time.time()
     libs = R.build_render_libraries()
     log(f"[build] {', '.join(p.name for p in libs.values())} in {time.time() - t0:.1f} s")
+    run = R.run_length(100)  # the 4 s voices' ratio, 176400 / 1764
+    resources = {}
     for name, lib in libs.items():
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        report = R.ptxas_report(lib.with_suffix(".log").read_text(), run)
+        resources[name] = {**report, "blocks_per_sm": R.kernel_occupancy(name),
+                           **sass_per_slot(lib, run)}
+        log(f"[build] {name} (runs of {run}): {resources[name]}")
+        if not report or resources[name]["blocks_per_sm"] < 1:
+            raise AssertionError(f"no ptxas report or occupancy for {name}")
+    mismatches = R.sequence_mismatches()
+    log(f"[build] floats where x / 12, tanh's quotient, mod 2pi and floor differ from IEEE "
+        f"division, fmodf and floorf on their domains: {mismatches}")
+    if any(mismatches):
+        raise AssertionError("the kernels' division, remainder or floor sequences differ")
 
     render = phase_render()
     render_bwd = phase_render_bwd()
@@ -467,9 +507,12 @@ def main() -> int:
             "bound_by": main["bound_by"],
             "library_ms": None,
             "batch": main_batch,
+            "share_of_bound": main["bound_ms"] / main["ms"],
+            "resources": resources[name],
             "launches_by_path": {"vicreg_pretrain": train["launches"][name],
                                  "downstream_combined": downstream["launches"][name]},
-            "by_batch": {str(b): {k: v[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+            "by_batch": {str(b): {**{k: v[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+                                  "share_of_bound": v["bound_ms"] / v["ms"]}
                          for b, v in by_batch.items() if isinstance(b, int)},
         }
 

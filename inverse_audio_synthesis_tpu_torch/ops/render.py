@@ -14,9 +14,9 @@ JAX package's ``render_audio_fused_bwd`` does.
   Both are built with nvcc for sm_90a at first use and loaded with ctypes. Neither
   falls back.
 - For CPU tensors they run ``render_audio_plain`` and ``render_audio_bwd_plain``:
-  the same arithmetic in plain torch, in the kernels' association (sequential sums
-  within a segment, the kernels' warp-shaped scans and trees within a tile, the
-  carries across tiles).
+  the same arithmetic in plain torch, in the kernels' association (each thread's
+  run of samples summed in order, the warp-shaped scans and trees over the lanes
+  of a segment and over a tile, the chained carries across tiles).
 
 What bounds each kernel on an H100, and what its design does about it, is written
 at the top of its CUDA source; PERF.md has their times beside their bounds.
@@ -28,6 +28,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,7 +46,9 @@ from inverse_audio_synthesis_tpu_torch.ops.math_ops import (
 )
 from inverse_audio_synthesis_tpu_torch.ops.scan_ops import TWO_PI, fmod_floor
 
-SEG_TILE = 64  # segments per tile; one thread per segment in the kernel
+SEG_TILE = 32  # segments per tile (one block of the kernels)
+LANES = 8  # threads per segment; lane k owns samples [k*run, k*run + run)
+MAX_RUN = 16  # samples per thread at most: ratio <= LANES * MAX_RUN
 _WARP = 32
 _LN2 = math.log(2.0)
 
@@ -61,8 +64,8 @@ _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each library's launch function (pointers, then batch, tc, ratio,
 # the float 2pi/sr, and the stream)
 _LAUNCH_ARGS = {
-    "render_fwd": [_PTR] * 8 + [_INT] * 3 + [_F32, _PTR],
-    "render_bwd": [_PTR] * 11 + [_INT] * 3 + [_F32, _PTR],
+    "render_fwd": [_PTR] * 7 + [_INT] * 3 + [_F32, _PTR],
+    "render_bwd": [_PTR] * 10 + [_INT] * 3 + [_F32, _PTR],
 }
 
 # Launches of each CUDA kernel group, counted by the wrapper where it launches.
@@ -79,7 +82,7 @@ def reset_launch_counts() -> None:
 
 def fused_render_supported(batch: int, audio_len: int, control_len: int) -> bool:
     """The kernel takes an integer audio/control ratio in [2, 128] (the JAX
-    kernel's gate; 128 also bounds the kernel's shared-memory tile)."""
+    kernel's gate; 128 = LANES * MAX_RUN also bounds the kernels' runs)."""
     if control_len <= 0 or audio_len % control_len != 0:
         return False
     return 2 <= audio_len // control_len <= 128
@@ -150,8 +153,57 @@ def _library(name: str) -> ctypes.CDLL:
             tile.restype = ctypes.c_int
             if tile() != SEG_TILE:
                 raise RuntimeError(f"csrc/{name}.cu SEG_TILE differs from ops/render.py")
+            getattr(lib, f"{name}_occupancy").restype = ctypes.c_int
             _libs[name] = lib
         return _libs[name]
+
+
+def ptxas_report(log: str, run: int) -> Dict[str, int]:
+    """From nvcc's ``-Xptxas -v`` output (the ``.log`` beside a library): the
+    registers, shared memory, stack and spills of the render kernel instantiated
+    for runs of ``run`` samples (``render_kernel<run>`` or ``render_bwd_kernel<run>``)."""
+    entry, found = None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        if entry is None or f"_kernelILi{run}E" not in entry:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            found.update(stack_bytes=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m:
+            found.update(registers=int(m[1]), smem_bytes=int(m[2]))
+    return found
+
+
+def kernel_occupancy(name: str) -> int:
+    """Resident blocks per SM of the kernel in ``csrc/<name>.cu``, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor at its registers and shared
+    memory (needs the card)."""
+    return int(getattr(_library(name), f"{name}_occupancy")())
+
+
+def sequence_mismatches() -> Tuple[int, int, int, int]:
+    """Run the card's exhaustive check of the kernels' division, remainder and
+    floor sequences (csrc/render_fwd.cu:check_sequences_kernel) -> the floats of
+    each one's domain where it differs from IEEE division, fmodf or floorf: x / 12,
+    tanh's (y - 1) / (y + 1), mod 2pi, floor. All are 0 when the kernels compute
+    what the plain versions do."""
+    fn = _library("render_fwd").render_fwd_check_sequences
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    if fn(out) != 0:
+        raise RuntimeError("render_fwd_check_sequences failed")
+    return tuple(int(v) for v in out)
+
+
+def _sync_words(n: int, device) -> torch.Tensor:
+    """The kernels' ticket counter and status words, all bits set: a fresh chain
+    per call (csrc/render_common.cuh)."""
+    return torch.full((n,), -1, dtype=torch.int64, device=device)
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -183,15 +235,16 @@ def _render_cuda(routed, scalars, noise, sample_rate: float, save_phase: bool):
     _check("routed", routed, (b, 5, tc), device)
     _check("scalars", scalars, (b, 16), device)
     _check("noise", noise, (b, ta), device)
-    tcp = -(-tc // SEG_TILE) * SEG_TILE
+    n_tiles = -(-tc // SEG_TILE)
     out = torch.empty((b, ta), dtype=torch.float32, device=device)
-    seg_mean = torch.empty((b, 2, tcp), dtype=torch.float32, device=device)
-    seg_offset = torch.empty_like(seg_mean)
-    tile_total = torch.empty((b, 2, tcp // SEG_TILE), dtype=torch.float32, device=device)
-    phase_offset = torch.empty_like(seg_mean) if save_phase else None
+    seg_mean = phase_offset = None
+    if save_phase:
+        seg_mean = torch.empty((b, 2, n_tiles * SEG_TILE), dtype=torch.float32, device=device)
+        phase_offset = torch.empty_like(seg_mean)
+    sync = _sync_words(1 + b * n_tiles, device)
     _launch(
-        "render_fwd", routed, scalars, noise, out, seg_mean, seg_offset, tile_total,
-        phase_offset if save_phase else None, b, tc, ta // tc, dphi_scale(sample_rate),
+        "render_fwd", routed, scalars, noise, out, seg_mean, phase_offset, sync,
+        b, tc, ta // tc, dphi_scale(sample_rate),
     )
     return (out, seg_mean, phase_offset) if save_phase else out
 
@@ -200,8 +253,8 @@ def _render_bwd_cuda(routed, scalars, noise, g, seg_mean, phase_offset, sample_r
     b, _, tc = routed.shape
     ta = noise.shape[-1]
     device = routed.device
-    tcp = -(-tc // SEG_TILE) * SEG_TILE
-    n_tiles = tcp // SEG_TILE
+    n_tiles = -(-tc // SEG_TILE)
+    tcp = n_tiles * SEG_TILE
     _check("routed", routed, (b, 5, tc), device)
     _check("scalars", scalars, (b, 16), device)
     _check("noise", noise, (b, ta), device)
@@ -209,14 +262,13 @@ def _render_bwd_cuda(routed, scalars, noise, g, seg_mean, phase_offset, sample_r
     _check("seg_mean", seg_mean, (b, 2, tcp), device)
     _check("phase_offset", phase_offset, (b, 2, tcp), device)
     f32 = dict(dtype=torch.float32, device=device)
-    seg_suffix = torch.empty((b, 2, tcp), **f32)
-    tile_total = torch.empty((b, 2, n_tiles), **f32)
     d_seg = torch.empty((b, 5, 3, tcp), **f32)
     d_part = torch.empty((b, n_tiles, 16), **f32)
     d_scalars = torch.empty((b, 16), **f32)
+    sync = _sync_words(1 + b * n_tiles + b, device)
     _launch(
-        "render_bwd", routed, scalars, noise, g, seg_mean, phase_offset, seg_suffix,
-        tile_total, d_seg, d_part, d_scalars, b, tc, ta // tc, dphi_scale(sample_rate),
+        "render_bwd", routed, scalars, noise, g, seg_mean, phase_offset, d_seg, d_part,
+        d_scalars, sync, b, tc, ta // tc, dphi_scale(sample_rate),
     )
     return assemble_d_routed(d_seg, tc), d_scalars
 
@@ -297,24 +349,17 @@ def render_audio_fused(
 
 
 # -- the plain version ---------------------------------------------------------------
+#
+# The kernels' layout (csrc/render_common.cuh): a tile of SEG_TILE segments per
+# block, LANES threads per segment, lane k owning the run of samples
+# [k*run, k*run + run) of its segment, run = ceil(ratio / LANES). Below, a
+# segment's samples are held in that slot layout, [..., LANES, run]: slot (k, i)
+# is sample k*run + i, and the slots at or past the ratio hold no sample.
 
 
-def _tile_inclusive_scan(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan over the last axis (SEG_TILE) with the kernel's association:
-    a Hillis-Steele scan within each warp of 32, then the warp totals added in
-    order (render_fwd.cu:block_inclusive_scan)."""
-    lead = x.shape[:-1]
-    v = x.reshape(*lead, SEG_TILE // _WARP, _WARP)
-    off = 1
-    while off < _WARP:
-        v = torch.cat([v[..., :off], v[..., off:] + v[..., :-off]], dim=-1)
-        off *= 2
-    warps = list(v.unbind(-2))
-    prefix = torch.zeros_like(warps[0][..., -1])
-    for w in range(1, len(warps)):
-        prefix = prefix + warps[w - 1][..., -1]
-        warps[w] = prefix[..., None] + warps[w]
-    return torch.stack(warps, dim=-2).reshape(x.shape)
+def run_length(ratio: int) -> int:
+    """Samples per thread: lane k of a segment owns [k*run, k*run + run)."""
+    return -(-ratio // LANES)
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -325,21 +370,114 @@ def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
+def _slots(ratio: int, device):
+    """Per slot [LANES, run]: its sample index j, whether it holds a sample, and the
+    half-pixel interpolation position jw = (j + 0.5) / ratio - 0.5 as the kernels
+    divide it."""
+    run = run_length(ratio)
+    j = torch.arange(LANES * run, device=device).reshape(LANES, run)
+    jw = _div(j.to(torch.float32) + 0.5, float(ratio)) - 0.5
+    return j, j < ratio, jw
+
+
+def _inclusive_scan(x: torch.Tensor) -> torch.Tensor:
+    """Hillis-Steele inclusive scan over the last axis, as a warp runs it with
+    shuffles: x[k] + x[k - off] for off = 1, 2, 4, ..."""
+    off = 1
+    while off < x.shape[-1]:
+        x = torch.cat([x[..., :off], x[..., off:] + x[..., :-off]], dim=-1)
+        off *= 2
+    return x
+
+
+def segment_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a segment's LANES lanes) as the kernels' butterfly
+    (render_common.cuh:segment_sum and transpose_sum16): lane pairs 8 apart, then
+    4, 2, 1."""
+    lane = torch.arange(x.shape[-1], device=x.device)
+    m = x.shape[-1] // 2
+    while m >= 1:
+        x = x + x[..., lane ^ m]
+        m //= 2
+    return x[..., 0]
+
+
+def segment_exclusive_scan(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix over the last axis (the lanes): the inclusive warp scan,
+    shifted by one lane (render_common.cuh:segment_exclusive_scan)."""
+    incl = _inclusive_scan(x)
+    return torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], dim=-1)
+
+
+def segment_exclusive_suffix(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mirror image over the lanes -> (exclusive suffix, the total)."""
+    incl = _inclusive_scan(x.flip(-1)).flip(-1)
+    return torch.cat([incl[..., 1:], torch.zeros_like(incl[..., :1])], dim=-1), incl[..., 0]
+
+
+def segment_phase(dphi: torch.Tensor, holds: torch.Tensor, ratio: int):
+    """One oscillator's phase inside each segment, in the kernels' association of
+    the TPU kernel's mean plus residual prefix.
+
+    ``dphi`` [..., LANES, run] are the increments in slot layout and ``holds``
+    [LANES, run] marks the slots that hold a sample. Each lane sums its run in
+    order, the butterfly adds the lanes, and the mean is that sum over the ratio.
+    The residual prefix at a slot is the exclusive scan of the lanes' residual
+    totals plus the lane's own running residual. Returns (mean [...], prefix
+    [..., LANES, run], total [...]), the total being mod_2pi(mean * ratio +
+    prefix at the segment's last sample)."""
+    zero = dphi.new_zeros(())
+    run = dphi.shape[-1]
+    run_sum = torch.zeros_like(dphi[..., 0])
+    for i in range(run):
+        run_sum = run_sum + torch.where(holds[:, i], dphi[..., i], zero)
+    mean = _div(segment_sum(run_sum), float(ratio))
+    res = torch.zeros_like(run_sum)
+    own = []
+    for i in range(run):
+        res = res + torch.where(holds[:, i], dphi[..., i] - mean[..., None], zero)
+        own.append(res)
+    ex = segment_exclusive_scan(res)
+    prefix = torch.stack([ex + p for p in own], dim=-1)
+    last = (ratio - 1) // run  # the lane of the segment's last sample
+    total = fmod_floor(mean * float(ratio) + (ex[..., last] + res[..., last]), TWO_PI)
+    return mean, prefix, total
+
+
+def _tile_inclusive_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan over the last axis (a tile's <= 32 segments) as the
+    kernels' first warp runs it (render_common.cuh:tile_inclusive_scan)."""
+    return _inclusive_scan(x)
+
+
+def chained_tile_carry(tile_total: torch.Tensor) -> torch.Tensor:
+    """The phase carried into each tile [..., n_tiles] from the wrapped tile totals,
+    chained as the forward kernel chains its blocks: incl[k] = mod_2pi(incl[k-1] +
+    total[k]) from incl[-1] = 0, tile k's carry being incl[k-1]."""
+    incl = torch.zeros_like(tile_total[..., 0])
+    carries = [incl]
+    for k in range(tile_total.shape[-1] - 1):
+        incl = fmod_floor(incl + tile_total[..., k], TWO_PI)
+        carries.append(incl)
+    return torch.stack(carries, dim=-1)
+
+
 def render_audio_plain(
     routed: torch.Tensor, scalars: torch.Tensor, noise: torch.Tensor, sample_rate: float,
     save_phase: bool = False,
 ):
     """The kernel's function in plain torch, in the kernel's order of operations.
 
-    Sums run sequentially over the samples of a segment (a Python loop over the
-    ratio), so this is slow on any device; it exists to be compared with. With
-    ``save_phase`` it also returns the segment means and final phase offsets
-    ([B, 2, tcp] each), as the kernel writes them for the backward."""
+    Loops in Python over a lane's run (at most MAX_RUN) and over the tiles, so it
+    is slow on any device; it exists to be compared with. With ``save_phase`` it
+    also returns the segment means and final phase offsets ([B, 2, tcp] each), as
+    the kernel writes them for the backward."""
     routed = routed.float()
     scalars = scalars.float()
     b, _, tc = routed.shape
     ta = noise.shape[-1]
     r = ta // tc
+    run = run_length(r)
     n_tiles = -(-tc // SEG_TILE)
     tcp = n_tiles * SEG_TILE
     device = routed.device
@@ -347,47 +485,32 @@ def render_audio_plain(
     left = routed[..., seg.clamp(max=tc - 1)]  # [B, 5, tcp]
     prev = routed[..., (seg - 1).clamp(0, tc - 1)]
     nxt = routed[..., (seg + 1).clamp(max=tc - 1)]
-    jw = _div(torch.arange(r, dtype=torch.float32, device=device) + 0.5, float(r)) - 0.5
+    j, holds, jw = _slots(r, device)  # [LANES, run]
     w = torch.abs(jw)
     use_prev = jw < 0.0
 
-    def up(sig: int) -> torch.Tensor:  # [B, tcp, r]
-        neighbor = torch.where(use_prev, prev[:, sig, :, None], nxt[:, sig, :, None])
-        return left[:, sig, :, None] * (1.0 - w) + neighbor * w
+    def up(sig: int) -> torch.Tensor:  # [B, tcp, LANES, run]
+        neighbor = torch.where(use_prev, prev[:, sig, :, None, None], nxt[:, sig, :, None, None])
+        return left[:, sig, :, None, None] * (1.0 - w) + neighbor * w
 
     def col(i: int) -> torch.Tensor:
-        return scalars[:, i][:, None, None]
+        return scalars[:, i][:, None, None, None]
 
     scale = dphi_scale(sample_rate)
-    ramp = torch.arange(1, r + 1, dtype=torch.float32, device=device)
+    ramp = j.to(torch.float32) + 1.0
 
     saved = []
 
     def phase(sig: int, base: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
         midi = torch.clamp(base + depth * up(sig), 0.0, 127.0)
         dphi = scale * (440.0 * exp2_accurate(_div(midi - 69.0, 12.0)))
-        total = torch.zeros_like(dphi[..., 0])
-        for j in range(r):
-            total = total + dphi[..., j]
-        mean = _div(total, float(r))
-        delta = dphi - mean[..., None]
-        acc = torch.empty_like(dphi)
-        run = torch.zeros_like(mean)
-        for j in range(r):
-            run = run + delta[..., j]
-            acc[..., j] = run
-        within = mean[..., None] * ramp + acc  # [B, tcp, r]
-        totals = fmod_floor(within[..., -1], TWO_PI).reshape(b, n_tiles, SEG_TILE)
-        incl = _tile_inclusive_scan(totals)
+        mean, prefix, total = segment_phase(dphi, holds, r)  # [B, tcp], ...
+        incl = _tile_inclusive_scan(total.reshape(b, n_tiles, SEG_TILE))
         excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], dim=-1)
-        tile_total = fmod_floor(incl[..., -1], TWO_PI)  # [B, n_tiles]
-        carries = [torch.zeros_like(tile_total[:, 0])]
-        for k in range(n_tiles - 1):
-            carries.append(fmod_floor(carries[-1] + tile_total[:, k], TWO_PI))
-        carry = torch.stack(carries, dim=1)  # [B, n_tiles]
+        carry = chained_tile_carry(fmod_floor(incl[..., -1], TWO_PI))  # [B, n_tiles]
         offset = fmod_floor(fmod_floor(excl, TWO_PI) + carry[..., None], TWO_PI).reshape(b, tcp)
         saved.append((mean, offset))
-        return within + offset[..., None]
+        return (mean[..., None, None] * ramp + prefix) + offset[..., None, None]
 
     phase1 = phase(0, col(0), col(1)) + col(2)
     _, cos1 = sincos_fast(phase1)
@@ -398,9 +521,8 @@ def render_audio_plain(
     square = tanh_fast(math.pi * col(7) * sin2 / 2.0)
     osc2 = (1.0 - shape / 2.0) * square * (1.0 + shape * cos2)
     mix = mix + col(9) * osc2 * torch.clamp_min(up(3), 0.0)
-    noise3 = torch.nn.functional.pad(noise.float(), (0, tcp * r - ta)).reshape(b, tcp, r)
-    mix = mix + col(10) * noise3 * torch.clamp_min(up(4), 0.0)
-    audio = mix.reshape(b, tcp * r)[:, :ta]
+    mix = mix + col(10) * _slot_layout(noise, tcp, r) * torch.clamp_min(up(4), 0.0)
+    audio = mix.reshape(b, tcp, LANES * run)[..., :r].reshape(b, tcp * r)[:, :ta]
     if not save_phase:
         return audio
     seg_mean = torch.stack([m for m, _ in saved], dim=1)
@@ -408,20 +530,41 @@ def render_audio_plain(
     return audio, seg_mean, phase_offset
 
 
+def _slot_layout(x: torch.Tensor, tcp: int, r: int) -> torch.Tensor:
+    """[B, Ta] audio-rate values -> [B, tcp, LANES, run], zeros where no sample."""
+    b, ta = x.shape
+    x = torch.nn.functional.pad(x.float(), (0, tcp * r - ta)).reshape(b, tcp, r)
+    run = run_length(r)
+    return torch.nn.functional.pad(x, (0, LANES * run - r)).reshape(b, tcp, LANES, run)
+
+
 # -- the backward's plain version ----------------------------------------------------
 
 
 def _tile_inclusive_suffix(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive suffix scan over the last axis (SEG_TILE) with the kernel's
-    association (render_bwd.cu:block_inclusive_suffix): the forward scan's
+    """Inclusive suffix scan over the last axis (a tile's segments) with the kernel's
+    association (render_common.cuh:tile_inclusive_suffix): the forward scan's
     association, mirrored."""
     return _tile_inclusive_scan(x.flip(-1)).flip(-1)
 
 
+def chained_tile_suffix(tile_total: torch.Tensor) -> torch.Tensor:
+    """d(phase) of all later tiles [..., n_tiles], chained as the backward kernel
+    chains its blocks: incl[k] = incl[k+1] + total[k] from incl[n_tiles] = 0, tile
+    k's carry being incl[k+1]."""
+    incl = torch.zeros_like(tile_total[..., 0])
+    later = [incl]
+    for k in range(tile_total.shape[-1] - 1, 0, -1):
+        incl = incl + tile_total[..., k]
+        later.append(incl)
+    return torch.stack(later[::-1], dim=-1)
+
+
 def _tile_tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis (SEG_TILE) as the kernel reduces a tile: a shuffle
-    tree inside each warp of 32, then the warp totals in order."""
-    v = x.reshape(*x.shape[:-1], SEG_TILE // _WARP, _WARP)
+    """Sum over the last axis (a tile's threads, a multiple of 32) as the kernel
+    reduces a tile: a shuffle tree inside each warp of 32, then the warp totals
+    in order."""
+    v = x.reshape(*x.shape[:-1], x.shape[-1] // _WARP, _WARP)
     half = _WARP // 2
     while half >= 1:
         v = v[..., :half] + v[..., half : 2 * half]
@@ -452,79 +595,84 @@ def render_audio_bwd_plain(
     seg_mean: torch.Tensor, phase_offset: torch.Tensor, sample_rate: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel's function in plain torch, in its order of operations
-    (csrc/render_bwd.cu): per segment a walk forward in time (phase recompute from
-    the saved means and offsets, oscillator, VCA and mixer cotangents), the suffix
-    sums of d(phase) within the tile and across later tiles, then a walk backward
-    in time (the pitch chain, masked strictly: 0 < pre < 127, u > 0). Returns
-    (d_routed [B, 5, Tc], d_scalars [B, 16]). A Python loop over the ratio, twice:
-    slow on any device; it exists to be compared with."""
+    (csrc/render_bwd.cu), one run position of every lane at a time: the increments
+    and the lanes' residual prefixes; a walk forward in time (phase recompute from
+    the saved means and offsets, oscillator, VCA and mixer cotangents); the suffix
+    sums of d(phase) over the lane's run, the later lanes, the later segments of
+    the tile and the later tiles; a walk backward in time (the pitch chain, masked
+    strictly: 0 < pre < 127, u > 0). Returns (d_routed [B, 5, Tc], d_scalars
+    [B, 16]). Slow on any device; it exists to be compared with."""
     routed, scalars = routed.float(), scalars.float()
     b, _, tc = routed.shape
     ta = noise.shape[-1]
     r = ta // tc
+    run = run_length(r)
     n_tiles = -(-tc // SEG_TILE)
     tcp = n_tiles * SEG_TILE
     device = routed.device
     seg = torch.arange(tcp, device=device)
-    valid = seg < tc
     left = routed[..., seg.clamp(max=tc - 1)]  # [B, 5, tcp]
     prev = routed[..., (seg - 1).clamp(0, tc - 1)]
     nxt = routed[..., (seg + 1).clamp(max=tc - 1)]
-    # interpolation offsets as the kernel computes them in float32
-    jw = (np.arange(r, dtype=np.float32) + np.float32(0.5)) / np.float32(r) - np.float32(0.5)
-    jw_t = torch.from_numpy(jw).to(device)
-    w_t = torch.abs(jw_t)
+    j, holds, jw = _slots(r, device)
+    holds = holds & (seg < tc)[:, None, None]  # [tcp, LANES, run]: padded segments have none
+    w_all = torch.abs(jw)
     zero = torch.zeros((), dtype=torch.float32, device=device)
 
-    def weights(j: int):  # (w, use_prev, w_left, w_prev, w_next)
-        w, use_prev = w_t[j], bool(jw[j] < 0.0)
-        return w, use_prev, 1.0 - w, (w if use_prev else zero), (zero if use_prev else w)
+    def weights(i: int):  # per lane at run position i: (w, w_left, use_prev, w_prev, w_next)
+        w, use_prev = w_all[:, i], jw[:, i] < 0.0
+        return w, 1.0 - w, use_prev, torch.where(use_prev, w, zero), torch.where(use_prev, zero, w)
 
-    def up(sig: int, w, use_prev: bool) -> torch.Tensor:  # [B, tcp]
-        neighbor = prev[:, sig] if use_prev else nxt[:, sig]
-        return left[:, sig] * (1.0 - w) + neighbor * w
+    def up(sig: int, w, wl, use_prev) -> torch.Tensor:  # [B, tcp, LANES]
+        neighbor = torch.where(use_prev, prev[:, sig, :, None], nxt[:, sig, :, None])
+        return left[:, sig, :, None] * wl + neighbor * w
 
     def col(i: int) -> torch.Tensor:
-        return scalars[:, i][:, None]
+        return scalars[:, i][:, None, None]
 
     scale = dphi_scale(sample_rate)
 
     def increment(u, base, depth):
-        pre = base + depth * u
-        midi = torch.minimum(torch.maximum(pre, zero), zero + 127.0)
-        return pre, scale * (440.0 * exp2_accurate(_div(midi - 69.0, 12.0)))
+        midi = torch.minimum(torch.maximum(base + depth * u, zero), zero + 127.0)
+        return scale * (440.0 * exp2_accurate(_div(midi - 69.0, 12.0)))
 
-    pad = tcp * r - ta
-    g3 = torch.nn.functional.pad(g.float(), (0, pad)).reshape(b, tcp, r)
-    n3 = torch.nn.functional.pad(noise.float(), (0, pad)).reshape(b, tcp, r)
-    mean, offset = seg_mean.float(), phase_offset.float()
+    g4, n4 = _slot_layout(g, tcp, r), _slot_layout(noise, tcp, r)
+    mean, offset = seg_mean.float()[..., None], phase_offset.float()[..., None]  # [B, 2, tcp, 1]
 
-    def masked(x):  # padded segments contribute exactly zero
-        return torch.where(valid, x, zero)
+    def lanes():
+        return torch.zeros((b, tcp, LANES), device=device)
 
-    def mask_of(cond: torch.Tensor) -> torch.Tensor:
-        return cond.to(torch.float32)
+    # the increments, once per sample, and each lane's exclusive residual prefix
+    dphi = [[None] * run for _ in range(2)]
+    ex = []
+    for o in range(2):
+        res = lanes()
+        for i in range(run):
+            w, wl, use_prev, _, _ = weights(i)
+            dphi[o][i] = increment(up(2 * o, w, wl, use_prev), col(3 * o), col(3 * o + 1))
+            res = res + torch.where(holds[..., i], dphi[o][i] - mean[:, o], zero)
+        ex.append(segment_exclusive_scan(res))
 
     # forward in time
-    acc = [torch.zeros((b, tcp), device=device) for _ in range(2)]
-    ds = {i: torch.zeros((b, tcp), device=device) for i in range(11)}
-    dw = {s: [torch.zeros((b, tcp), device=device) for _ in range(3)] for s in range(5)}
-    d_phase = torch.empty((b, 2, tcp, r), dtype=torch.float32, device=device)
-    for j in range(r):
-        w, use_prev, wl, wp, wn = weights(j)
-        ramp = float(j + 1)
+    ds = {i: lanes() for i in range(11)}
+    dw = {s: [lanes() for _ in range(3)] for s in range(5)}
+    d_phase = [[None] * run for _ in range(2)]
+    res = [lanes(), lanes()]
+    for i in range(run):
+        w, wl, use_prev, wp, wn = weights(i)
+        ok = holds[..., i]
+        ramp = j[:, i].to(torch.float32) + 1.0
         phase = []
         for o in range(2):
-            _, d = increment(up(2 * o, w, use_prev), col(3 * o), col(3 * o + 1))
-            acc[o] = acc[o] + (d - mean[:, o])
-            phase.append((mean[:, o] * ramp + acc[o]) + offset[:, o])
-        gj, nz = g3[..., j], n3[..., j]
+            res[o] = res[o] + torch.where(ok, dphi[o][i] - mean[:, o], zero)
+            phase.append((mean[:, o] * ramp + (ex[o] + res[o])) + offset[:, o])
+        gj, nz = g4[..., i], n4[..., i]
         s1, c1 = sincos_fast(phase[0] + col(2))
-        u1 = up(1, w, use_prev)
+        u1 = up(1, w, wl, use_prev)
         a1 = torch.maximum(u1, zero)
         gl1 = gj * col(8)
         dl1 = (gj * c1) * a1
-        du1 = (gl1 * c1) * mask_of(u1 > 0.0)
+        du1 = (gl1 * c1) * (u1 > 0.0).to(torch.float32)
         dp1 = -(gl1 * a1) * s1
         s2, c2 = sincos_fast(phase[1] + col(5))
         shape, partials = col(6), col(7)
@@ -532,12 +680,12 @@ def render_audio_bwd_plain(
         amod = 1.0 - shape / 2.0
         bmod = 1.0 + shape * c2
         osc2 = amod * sq * bmod
-        u3 = up(3, w, use_prev)
+        u3 = up(3, w, wl, use_prev)
         a2 = torch.maximum(u3, zero)
         gl2 = gj * col(9)
         dl2 = (gj * osc2) * a2
         dosc2 = gl2 * a2
-        du3 = (gl2 * osc2) * mask_of(u3 > 0.0)
+        du3 = (gl2 * osc2) * (u3 > 0.0).to(torch.float32)
         dsq = dosc2 * amod * bmod
         dcos2 = dosc2 * amod * sq * shape
         dshape = dosc2 * (amod * sq * c2 - 0.5 * sq * bmod)
@@ -545,44 +693,44 @@ def render_audio_bwd_plain(
         dpartials = darg * (math.pi * s2 / 2.0)
         dsin2 = darg * (math.pi * partials / 2.0)
         dp2 = dsin2 * c2 - dcos2 * s2
-        u4 = up(4, w, use_prev)
+        u4 = up(4, w, wl, use_prev)
         dl3 = (gj * nz) * torch.maximum(u4, zero)
-        du4 = (gj * col(10) * nz) * mask_of(u4 > 0.0)
-        for i, v in ((2, dp1), (5, dp2), (6, dshape), (7, dpartials), (8, dl1), (9, dl2), (10, dl3)):
-            ds[i] = ds[i] + v
+        du4 = (gj * col(10) * nz) * (u4 > 0.0).to(torch.float32)
+        for k, v in ((2, dp1), (5, dp2), (6, dshape), (7, dpartials), (8, dl1), (9, dl2), (10, dl3)):
+            ds[k] = ds[k] + torch.where(ok, v, zero)
         for s, du in ((1, du1), (3, du3), (4, du4)):
+            du = torch.where(ok, du, zero)
             dw[s][0] = dw[s][0] + du * wp
             dw[s][1] = dw[s][1] + du * wl
             dw[s][2] = dw[s][2] + du * wn
-        d_phase[:, 0, :, j] = dp1
-        d_phase[:, 1, :, j] = dp2
+        d_phase[0][i] = torch.where(ok, dp1, zero)
+        d_phase[1][i] = torch.where(ok, dp2, zero)
 
-    # per segment the d(phase) total (time order), the later segments of its tile
-    # (suffix scan) and the later tiles (from the last one back)
-    tot = torch.zeros((b, 2, tcp), device=device)
-    for j in range(r):
-        tot = tot + d_phase[..., j]
-    incl = _tile_inclusive_suffix(masked(tot).reshape(b, 2, n_tiles, SEG_TILE))
-    excl = torch.cat([incl[..., 1:], torch.zeros_like(incl[..., :1])], dim=-1)
-    tile_total = incl[..., 0]  # [B, 2, n_tiles]
-    later = [torch.zeros_like(tile_total[..., 0])]
-    for k in range(n_tiles - 1, 0, -1):
-        later.append(later[-1] + tile_total[..., k])
-    later = torch.stack(later[::-1], dim=-1)  # [B, 2, n_tiles]: tiles after k
-    carry = (excl + later[..., None]).reshape(b, 2, tcp)
+    # d(phase) over the lane's run (from its end), then the later lanes of the
+    # segment, the later segments of the tile and the later tiles
+    carry = []
+    for o in range(2):
+        q = lanes()
+        for i in range(run - 1, -1, -1):
+            q = q + d_phase[o][i]
+        lane_later, seg_total = segment_exclusive_suffix(q)
+        incl = _tile_inclusive_suffix(seg_total.reshape(b, n_tiles, SEG_TILE))
+        excl = torch.cat([incl[..., 1:], torch.zeros_like(incl[..., :1])], dim=-1)
+        seg_carry = (excl + chained_tile_suffix(incl[..., 0])[..., None]).reshape(b, tcp)
+        carry.append(lane_later + seg_carry[..., None])
 
-    # backward in time
-    suf = [torch.zeros((b, tcp), device=device) for _ in range(2)]
-    for j in range(r - 1, -1, -1):
-        w, use_prev, wl, wp, wn = weights(j)
-        for o in range(2):
-            base, depth = col(3 * o), col(3 * o + 1)
-            u = up(2 * o, w, use_prev)
-            suf[o] = suf[o] + d_phase[:, o, :, j]
-            d_dphi = suf[o] + carry[:, o]
-            pre, dphi = increment(u, base, depth)
-            mask = mask_of((pre > 0.0) & (pre < 127.0))
-            d_midi = d_dphi * dphi * (_LN2 / 12.0) * mask
+    # backward in time: d(dphi) = suffix of d(phase), then the pitch chain
+    for o in range(2):
+        base, depth = col(3 * o), col(3 * o + 1)
+        q = lanes()
+        for i in range(run - 1, -1, -1):
+            w, wl, use_prev, wp, wn = weights(i)
+            u = up(2 * o, w, wl, use_prev)
+            q = q + d_phase[o][i]
+            d_dphi = q + carry[o]
+            pre = base + depth * u
+            mask = ((pre > 0.0) & (pre < 127.0)).to(torch.float32)
+            d_midi = torch.where(holds[..., i], d_dphi * dphi[o][i] * (_LN2 / 12.0) * mask, zero)
             ds[3 * o] = ds[3 * o] + d_midi
             ds[3 * o + 1] = ds[3 * o + 1] + d_midi * u
             du = d_midi * depth
@@ -590,12 +738,14 @@ def render_audio_bwd_plain(
             dw[2 * o][1] = dw[2 * o][1] + du * wl
             dw[2 * o][2] = dw[2 * o][2] + du * wn
 
-    d_seg = torch.stack([torch.stack([masked(c) for c in dw[s]], dim=1) for s in range(5)], dim=1)
-    per_seg = torch.stack([masked(ds[i]) for i in range(11)], dim=-1)  # [B, tcp, 11]
-    parts = _tile_tree_sum(per_seg.reshape(b, n_tiles, SEG_TILE, 11).transpose(-1, -2))
+    d_seg = torch.stack(
+        [torch.stack([segment_sum(c) for c in dw[s]], dim=1) for s in range(5)], dim=1
+    )  # [B, 5, 3, tcp]
+    per_lane = torch.stack([ds[i] for i in range(11)], dim=1)  # [B, 11, tcp, LANES]
+    parts = _tile_tree_sum(per_lane.reshape(b, 11, n_tiles, SEG_TILE * LANES))  # [B, 11, n_tiles]
     d_scal = torch.zeros((b, 11), device=device)
     for k in range(n_tiles):
-        d_scal = d_scal + parts[:, k]
+        d_scal = d_scal + parts[..., k]
     d_scalars = torch.nn.functional.pad(d_scal, (0, 16 - 11))
     return assemble_d_routed(d_seg, tc), d_scalars
 

@@ -29,7 +29,7 @@ from inverse_audio_synthesis_tpu_torch.synth import voice as tvoice
 
 torch.set_num_threads(2)
 
-SINGLE_TILE = 63 / 441  # Tc 63: one 64-segment tile, no carry across tiles
+SINGLE_TILE = 63 / 441  # Tc 63: one tile of the JAX kernel (64 segments at ratio 100)
 BOUND = {"d_routed": 5e-4, "d_scalars": 1e-4}
 
 
@@ -76,13 +76,14 @@ def _jax_bwd(routed, scalars, noise, g):
 
 @pytest.mark.parametrize("batch_num", [42, 7])
 def test_plain_bwd_matches_jax_kernel_on_one_tile(batch_num):
-    """One tile: no carry crosses tiles, and the two forwards' phases differ only
+    """One tile of the JAX kernel (two of the port's, with one wrapped carry
+    between them), and the two forwards' phases differ only
     by the rounding of their prefix sums (JAX: mean plus split-matmul residual
-    prefix; port: sequential sums), about 1e-5 rad. d_routed per signal: measured
-    max 1.6e-4 / 2.2e-4 (batch numbers 42 / 7), held at 5e-4. The scalar
-    cotangents are sums over all samples of terms of random sign (the cotangent
-    is noise), so they cancel and magnify that phase rounding: measured per
-    column up to 1.27e-3 / 4.4e-4 (the largest on the partials column), held per
+    prefix; port: lane runs, butterflies and scans), about 1e-5 rad. d_routed per
+    signal: measured max 1.6e-4 / 2.6e-4 (batch numbers 42 / 7), held at 5e-4. The
+    scalar cotangents are sums over all samples of terms of random sign (the
+    cotangent is noise), so they cancel and magnify that phase rounding: measured
+    per column up to 1.29e-3 / 4.9e-4 (the largest on the partials column), held per
     column at 2e-3. The next test shows the JAX package's own two evaluations of
     this function departing from each other by as much. Against autograd of its
     own forward the plain backward holds 1e-4 per column (the test after)."""
@@ -104,7 +105,7 @@ def test_jax_kernel_departs_from_its_own_replica_as_far(batch_num):
     evaluated op by op so that XLA does not refold the phase prefix. The same
     function, rounded another way, departs per column by up to 1.11e-3 / 9.2e-4
     (batch numbers 42 / 7; jitted, as the JAX test runs it, 1.3e-6 / 5.7e-5):
-    as far as the port does (1.27e-3 / 4.4e-4). Held: the JAX package's own gap
+    as far as the port does (1.29e-3 / 4.9e-4). Held: the JAX package's own gap
     exceeds the 1e-4 per column asked of the port, and the port's gap stays
     within twice it."""
     import jax
@@ -127,7 +128,7 @@ def test_jax_kernel_departs_from_its_own_replica_as_far(batch_num):
 
 def test_plain_bwd_follows_jax_kernel_at_1s():
     """At 1 s (7 tiles) the two forwards' phase associations differ (JAX: matmul
-    prefixes; port: sequential sums), and ill-conditioned pitch directions
+    prefixes; port: lane runs and warp scans), and ill-conditioned pitch directions
     amplify that, so this is directional, at the JAX repo's own bound
     (tests/test_pallas_render.py:344). Measured cosines 0.999996 / 0.999998."""
     _, _, routed, scalars, noise = _inputs(4, 1.0, 42)
@@ -282,3 +283,21 @@ def test_cuda_autograd_launches_both_kernels(cuda_device):
     torch.cuda.synchronize()
     assert R.launch_counts == {"render_fwd": 1, "render_bwd": 1}
     assert torch.isfinite(gp).all() and float(gp.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [4, 16])
+def test_cuda_bwd_kernel_repeats_bit_for_bit_and_matches_plain(cuda_device, batch):
+    """One launch per call (the scalar fold runs in the voice's last block); a
+    second call gives the same bits, equal to the plain version's."""
+    _, _, routed, scalars, noise = _inputs(batch, 4.0, 13, cuda_device)
+    g = torch.randn(noise.shape, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(1))
+    _, seg_mean, offset = R.render_audio_fused(routed, scalars, noise, 44100.0, save_phase=True)
+    before = R.launch_counts["render_bwd"]
+    first = R.render_audio_fused_bwd(routed, scalars, noise, g, seg_mean, offset, 44100.0)
+    second = R.render_audio_fused_bwd(routed, scalars, noise, g, seg_mean, offset, 44100.0)
+    torch.cuda.synchronize()
+    assert R.launch_counts["render_bwd"] == before + 2
+    plain = R.render_audio_bwd_plain(routed, scalars, noise, g, seg_mean, offset, 44100.0)
+    for a, b, c in zip(first, second, plain):
+        assert torch.equal(a, b) and torch.equal(a, c)

@@ -32,8 +32,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 GROUPS = (
-    ("render_fwd", ("render_seg_kernel", "render_audio_kernel")),
-    ("render_bwd", ("bwd_seg_kernel", "bwd_main_kernel", "bwd_fold_kernel")),
+    ("render_bwd", ("render_bwd_kernel",)),
+    ("render_fwd", ("render_kernel",)),
     ("fft", ("fft",)),
     ("matmul_conv", ("gemm", "xmma", "cutlass", "conv", "wgrad", "dgrad", "cudnn")),
 )
