@@ -32,7 +32,19 @@ Phases, each printing its own lines:
      downstream config with audio_to_params.loss=combined (batch 1024, dim 1024,
      4 s voices, bf16) through Trainer.fit, then one test step, with the counters
      reset just before and read just after;
-  6. one JSON line listing every ported kernel with its launches and times.
+  6. the retrieval eval at the full default config from that checkpoint: the
+     planted-query gate, 3 batches of 1024 candidates (16 queries, sub-chunks of
+     128, each rendered by K1) through RetrievalEvaluator.run with the counters
+     reset just before and read just after (K1 >= 2 + 8 per batch), monotone and
+     finite results, ms per batch and candidates/s; then 2 batches with
+     save_state_every=1 and a resume to 3, bit-identical to the uninterrupted run;
+  7. HEAR: scene and 50 ms timestamp embeddings of two 2.5-window clips, their
+     shapes, spacing, a window against the tower on its raw slice, and
+     timestamp embeddings per second;
+  8. export: embed_audio, predict_params (a fresh head on the frozen towers) and
+     render exported with torch.export, saved, reloaded and run on the card
+     against the live functions;
+  9. one JSON line listing every ported kernel with its launches and times.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero and
 prints no result. The script needs a CUDA device and the repository beside it.
 """
@@ -453,6 +465,212 @@ def phase_downstream(ckpt_dir: Path, probe) -> dict:
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb, "test": metrics}
 
 
+def timed_steps(evaluator) -> list:
+    """Record the host time of each of the evaluator's steps (a step ends by
+    reading its improvement mask on the host) into the list returned."""
+    times, step = [], evaluator.step
+
+    def timed(batch_num):
+        t = time.perf_counter()
+        mask = step(batch_num)
+        times.append(time.perf_counter() - t)
+        return mask
+
+    evaluator.step = timed
+    return times
+
+
+def phase_retrieval(ckpt_dir: Path, k1_b128_ms: float) -> dict:
+    import numpy as np
+    import torch
+
+    from inverse_audio_synthesis_tpu_torch.eval.retrieval import RetrievalEvaluator
+    from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.synth.voice import make_noise
+    from inverse_audio_synthesis_tpu_torch.train.pretrain import restore_vicreg, synth_config_from_cfg
+    from inverse_audio_synthesis_tpu_torch.utils.config import load_config
+
+    cfg = load_config()
+    rcfg = cfg.retrieval
+    task, state, step = restore_vicreg(cfg, str(ckpt_dir))
+    if step != N_STEPS:
+        raise AssertionError(f"expected the VICReg checkpoint of step {N_STEPS}, found {step}")
+    query_synth = synth_config_from_cfg(cfg, rcfg.test_batch_size)
+    candidate_synth = synth_config_from_cfg(cfg, rcfg.predict_batch_size)
+    n_sub = rcfg.predict_batch_size // rcfg.inner_chunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    make_noise(candidate_synth, "cuda")
+    torch.cuda.synchronize()
+    noise_ms = (time.perf_counter() - t0) * 1e3
+
+    def evaluator():
+        return RetrievalEvaluator(
+            lambda audio: task.project_audio(state, audio), query_synth, candidate_synth,
+            inner_chunk=rcfg.inner_chunk, device=task.device,
+        )
+
+    log(f"[retrieval] restored VICReg step {step}; {rcfg.test_batch_size} queries, batches of "
+        f"{rcfg.predict_batch_size} candidates in sub-chunks of {rcfg.inner_chunk}, precision "
+        f"{cfg.precision}; candidate noise buffer made once in {noise_ms:.1f} ms")
+    n_batches = 3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_retrieval_") as tmp:
+        R.reset_launch_counts()
+        ev = evaluator()
+        ev.assert_planted_queries_found()
+        batch_s = timed_steps(ev)
+        full = ev.run(n_batches, artifact_dir=str(Path(tmp) / "full"))
+        torch.cuda.synchronize()
+        launches = dict(R.launch_counts)
+        diag, d = ev.planted_query_distance()
+        norm = float(np.median(torch.linalg.vector_norm(ev.query_emb.float(), dim=1).cpu().numpy()))
+        del ev
+
+        # interrupted after 2 batches, then resumed to 3, as a rerun of the CLI does
+        evaluator().run(2, artifact_dir=str(Path(tmp) / "part"), save_state_every=1)
+        ev = evaluator()
+        resumed_steps = timed_steps(ev)
+        resumed = ev.run(n_batches, artifact_dir=str(Path(tmp) / "part"), save_state_every=1)
+        del ev
+    if len(resumed_steps) != 1:
+        raise AssertionError(f"the rerun took {len(resumed_steps)} batches: it did not resume from batch 2")
+    off = d[~np.eye(d.shape[0], dtype=bool)]
+    log(f"[retrieval] planted self-distances max {diag.max():.4g} median {np.median(diag):.4g}; "
+        f"median between queries {np.median(off):.4g}; median query-embedding norm {norm:.4g}")
+    hist = full["history"]
+    log(f"[retrieval] best distances after {n_batches} batches: {np.round(full['best_dist'], 4).tolist()}; "
+        f"NN param-MAE mean {float(full['nn_param_mae'].mean()):.4f}; history rows {hist.shape}")
+    if not (full["completed"] and hist.shape == (n_batches, rcfg.test_batch_size)):
+        raise AssertionError(f"retrieval did not complete {n_batches} batches: {hist.shape}")
+    if not (np.isfinite(full["best_dist"]).all() and np.isfinite(full["best_audio"]).all()):
+        raise AssertionError("non-finite retrieval results")
+    if not (np.diff(hist, axis=0) <= 1e-6).all() or not ((0 <= full["nn_param_mae"]) & (full["nn_param_mae"] <= 1)).all():
+        raise AssertionError("retrieval history not monotone or parameter MAE out of [0, 1]")
+    same = {k: bool(np.array_equal(full[k], resumed[k]))
+            for k in ("best_dist", "history", "best_audio", "best_params")}
+    log(f"[retrieval] resumed after 2 of {n_batches} batches, bit-identical to the uninterrupted run: {same}")
+    if not all(same.values()) or resumed["batches_done"] != n_batches:
+        raise AssertionError("the resumed retrieval differs from the uninterrupted run")
+    need = 2 + n_sub * n_batches
+    if launches["render_fwd"] < need:
+        raise AssertionError(f"render kernel launched {launches['render_fwd']} times, need >= {need}")
+    batch_ms = statistics.median(batch_s[1:]) * 1e3
+    share = n_sub * k1_b128_ms / batch_ms
+    log(f"[retrieval] per batch of {rcfg.predict_batch_size}: {[round(s * 1e3, 2) for s in batch_s]} ms; "
+        f"median after the first {batch_ms:.2f} ms = {rcfg.predict_batch_size / batch_ms * 1e3:.0f} "
+        f"candidates/s; K1 {n_sub} x {k1_b128_ms:.4f} ms = {100 * share:.1f}% of a batch; "
+        f"launches {launches}")
+    return {"launches": launches, "batch_ms": batch_ms, "k1_share": share, "noise_ms": noise_ms,
+            "candidates_per_s": rcfg.predict_batch_size / batch_ms * 1e3}
+
+
+def phase_hear(ckpt_dir: Path) -> None:
+    import torch
+
+    from inverse_audio_synthesis_tpu_torch.eval.hear import (
+        get_scene_embeddings,
+        get_timestamp_embeddings,
+        load_model,
+    )
+    from inverse_audio_synthesis_tpu_torch.synth import prng
+    from inverse_audio_synthesis_tpu_torch.utils.config import load_config
+
+    cfg = load_config()
+    model = load_model(cfg, str(ckpt_dir))
+    w = model.window_samples
+    clip = prng.uniform(prng.prng_key(1), (2, int(2.5 * w)), -1.0, 1.0, device="cuda")
+    scene = get_scene_embeddings(clip, model)
+    get_timestamp_embeddings(clip[:, :w], model)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb, ts = get_timestamp_embeddings(clip, model)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    hop = 2205  # 50 ms at 44.1 kHz
+    n_ts = -(-clip.shape[1] // hop)
+    if scene.shape != (2, cfg.dim) or emb.shape != (2, n_ts, cfg.dim) or ts.shape != (2, n_ts):
+        raise AssertionError(f"HEAR shapes: scene {tuple(scene.shape)}, timestamps {tuple(emb.shape)}")
+    if not (torch.isfinite(scene).all() and torch.isfinite(emb).all()):
+        raise AssertionError("non-finite HEAR embeddings")
+    centers_ms = (torch.arange(n_ts, dtype=torch.float64) * hop + hop // 2) * 1000.0 / model.sample_rate
+    if float((ts[0].double().cpu() - centers_ms).abs().max()) > 1e-3:
+        raise AssertionError(f"timestamps are not the 50 ms hops' centres: {ts[0, :3].tolist()}")
+    # an in-bounds window is the tower on the raw slice it covers; the two run at
+    # different batch sizes (128 windows a chunk vs 2) under bf16, so they are
+    # held within 3e-2 of the largest value, eight bf16 rounding units (2^-8)
+    k = 100
+    start = k * hop + hop // 2 - w // 2
+    ref = model.embed(clip[:, start : start + w])
+    rel = float((emb[:, k] - ref).abs().max() / ref.abs().max())
+    log(f"[hear] scene {tuple(scene.shape)}; timestamps {tuple(emb.shape)} at 50 ms hops; window {k} "
+        f"vs the tower on its raw slice: max|d| {rel:.3e} of the largest value "
+        f"(bit-identical: {bool(torch.equal(emb[:, k], ref))}); {2 * n_ts} timestamp embeddings "
+        f"in {dt * 1e3:.1f} ms = {2 * n_ts / dt:.0f}/s")
+    if rel > 3e-2:
+        raise AssertionError(f"a timestamp window differs from its raw slice by {rel} (bound 3e-2)")
+
+
+def phase_export(ckpt_dir: Path) -> None:
+    import io
+
+    import torch
+
+    from inverse_audio_synthesis_tpu_torch.serve import (
+        export_embed_audio,
+        export_predict_params,
+        export_render,
+        load_exported,
+        model_weights,
+        save_exported,
+    )
+    from inverse_audio_synthesis_tpu_torch.synth import prng
+    from inverse_audio_synthesis_tpu_torch.synth.voice import render_voice, sample_voice_params
+    from inverse_audio_synthesis_tpu_torch.train.downstream import AudioToParamsTask
+    from inverse_audio_synthesis_tpu_torch.train.pretrain import restore_vicreg
+    from inverse_audio_synthesis_tpu_torch.utils.config import load_config
+
+    batch = 16
+    cfg = load_config()
+    task, state, _ = restore_vicreg(cfg, str(ckpt_dir))
+    ds_task = AudioToParamsTask(cfg, task, state)
+    head_state = ds_task.init_state()
+    audio = prng.uniform(prng.prng_key(2), (batch, 1, task.synth.buffer_size), -1.0, 1.0, device="cuda")
+    params01 = sample_voice_params(5, task.synth, "cuda")[:batch]
+
+    def live_predict():
+        head_state.model.eval()
+        with torch.no_grad(), ds_task._autocast():
+            return head_state.model(ds_task._audio_repr(audio).float())
+
+    surfaces = {
+        "embed_audio": (lambda: export_embed_audio(task, state, batch),
+                        (model_weights(state.model), audio), lambda: task.embed_audio(state, audio)),
+        "predict_params": (lambda: export_predict_params(ds_task, head_state, batch),
+                           (model_weights(ds_task.frozen), model_weights(head_state.model), audio),
+                           live_predict),
+        "render": (lambda: export_render(task.synth, batch, "cuda"), (params01,),
+                   lambda: render_voice(params01, task.synth)),
+    }
+    for name, (export, args, live) in surfaces.items():
+        t0 = time.time()
+        buf = io.BytesIO()
+        save_exported(export(), buf)
+        size = len(buf.getvalue())
+        buf.seek(0)
+        with torch.no_grad():
+            got = load_exported(buf).module()(*args)
+            want = live()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        log(f"[export] {name}: {size} bytes, exported and reloaded in {time.time() - t0:.1f} s; "
+            f"output {tuple(got.shape)} {got.dtype} vs the live function max|d| {err:.3e} "
+            f"(bit-identical: {bool(torch.equal(got, want))})")
+        if got.shape != want.shape or not torch.isfinite(got).all() or err > 2e-6 * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"the {name} artifact disagrees with the live function: {err}")
+        if size > 8 << 20:  # the audio tower's weights alone are ~100 MB
+            raise AssertionError(f"the {name} artifact holds {size} bytes: weights baked in?")
+
+
 def main() -> int:
     import torch
 
@@ -491,6 +709,9 @@ def main() -> int:
         ckpt_dir = Path(tmp) / "vicreg"
         train = phase_train(ckpt_dir)
         downstream = phase_downstream(ckpt_dir, train["probe"])
+        retrieval = phase_retrieval(ckpt_dir, render[128]["ms"])
+        phase_hear(ckpt_dir)
+        phase_export(ckpt_dir)
 
     def entry(name, source, replaces, by_batch, main_batch):
         main = by_batch[main_batch]
@@ -510,7 +731,8 @@ def main() -> int:
             "share_of_bound": main["bound_ms"] / main["ms"],
             "resources": resources[name],
             "launches_by_path": {"vicreg_pretrain": train["launches"][name],
-                                 "downstream_combined": downstream["launches"][name]},
+                                 "downstream_combined": downstream["launches"][name],
+                                 "retrieval": retrieval["launches"][name]},
             "by_batch": {str(b): {**{k: v[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
                                   "share_of_bound": v["bound_ms"] / v["ms"]}
                          for b, v in by_batch.items() if isinstance(b, int)},
@@ -524,6 +746,7 @@ def main() -> int:
     ]
     kernels[0]["pretrain_step_ms"] = train["step_ms"]
     kernels[1]["downstream_step_ms"] = downstream["step_ms"]
+    kernels[0]["retrieval"] = {k: retrieval[k] for k in ("batch_ms", "candidates_per_s", "k1_share", "noise_ms")}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

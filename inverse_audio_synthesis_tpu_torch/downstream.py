@@ -26,7 +26,7 @@ from inverse_audio_synthesis_tpu_torch.synth.voice import VOICE_PARAM_SPECS
 from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.downstream import AudioToParamsTask
 from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
-from inverse_audio_synthesis_tpu_torch.train.pretrain import VicregPretrainTask
+from inverse_audio_synthesis_tpu_torch.train.pretrain import restore_vicreg
 from inverse_audio_synthesis_tpu_torch.train.runsetup import runsetup
 from inverse_audio_synthesis_tpu_torch.utils.config import load_config
 from inverse_audio_synthesis_tpu_torch.utils.logging import MetricsLogger
@@ -79,19 +79,14 @@ def evaluate_test_split(task: AudioToParamsTask, state, split, logger) -> Path:
 def app(cfg) -> int:
     split = runsetup(cfg)
     run_dir = Path(cfg.get("run_dir", "runs"))
-    pretrain_task = VicregPretrainTask(cfg)
+    pretrain_task, vicreg_state, step = restore_vicreg(cfg)
     device = pretrain_task.device
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"device: {device} ({name})")
-    vicreg_state = pretrain_task.init_state()
-    vicreg_dir = cfg.get("vicreg_checkpoint") or str(run_dir / "checkpoints" / "vicreg")
-    vicreg_ckpt = CheckpointManager(vicreg_dir)
-    step = vicreg_ckpt.latest_step()
     if step is not None:
-        vicreg_state = vicreg_ckpt.restore(vicreg_state)
-        print(f"loaded vicreg checkpoint step {step} from {vicreg_ckpt.dir}")
+        print(f"loaded vicreg checkpoint step {step}")
     else:
-        print(f"WARNING: no vicreg checkpoint under {vicreg_dir}; using random towers")
+        print("WARNING: no vicreg checkpoint found; using random towers")
 
     task = AudioToParamsTask(cfg, pretrain_task, vicreg_state)
     del pretrain_task, vicreg_state  # the task keeps its own frozen copy

@@ -39,6 +39,9 @@ class AudioEmbedding(nn.Module):
         super().__init__()
         self.dim = dim
         self.n_bands = n_bands
+        # the filterbank is designed here, not at the first forward: a forward
+        # traced by torch.export must find it made
+        self.pqmf = _pqmf(n_bands)
         self.image_size = tuple(image_size)
         self.vision_model = MobileNetV3Small(bn_dtype=bn_dtype, generator=generator)
         h, w = feature_map_size(*self.image_size)
@@ -66,7 +69,7 @@ class AudioEmbedding(nn.Module):
     def preprocess(self, audio: torch.Tensor) -> torch.Tensor:
         """[B, 1, T] -> normalized pseudo-image [B, 3, H, W] (float32)."""
         h, w = self.image_size
-        z = _pqmf(self.n_bands).analysis(audio.float())  # [B, 3, T/3]
+        z = self.pqmf.analysis(audio.float())  # [B, 3, T/3]
         if z.shape[1] * z.shape[2] != self.n_bands * h * w:
             raise ValueError(
                 f"audio length {audio.shape[-1]} does not tile into {self.n_bands}x{h}x{w}"

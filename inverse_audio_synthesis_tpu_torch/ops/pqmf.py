@@ -45,6 +45,8 @@ class PQMF:
         self._h_on = {}  # (device, dtype) -> H there, copied once
 
     def _filters(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.compiler.is_compiling():  # tracing (torch.export): keep the copy out of the cache
+            return self.H.to(device=x.device, dtype=x.dtype)
         key = (x.device, x.dtype)
         if key not in self._h_on:
             self._h_on[key] = self.H.to(device=x.device, dtype=x.dtype)

@@ -166,12 +166,16 @@ def square_saw_vco(params, midi_f0, pitch_mod, sample_rate) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def noise(key: torch.Tensor, batch_size: int, n_samples: int, device=None) -> torch.Tensor:
-    """Fixed white noise in [-1, 1): row i is ``uniform(fold_in(key, i))``,
+def noise(
+    key: torch.Tensor, batch_size: int, n_samples: int, device=None, row_offset: int = 0
+) -> torch.Tensor:
+    """Fixed white noise in [-1, 1): row i is ``uniform(fold_in(key, row_offset + i))``,
     bit-identical to the JAX package's ``modules.noise``, so a row does not depend
-    on the batch size. Rows are drawn a few at a time to bound the int64 scratch."""
+    on the batch size, and ``row_offset`` gives rows ``row_offset..row_offset +
+    batch_size`` of the longer buffer. Rows are drawn a few at a time to bound the
+    int64 scratch."""
     device = key.device if device is None else device
-    rows = torch.arange(batch_size, dtype=torch.int64, device=key.device)
+    rows = row_offset + torch.arange(batch_size, dtype=torch.int64, device=key.device)
     keys = prng.fold_in(key, rows).to(device)
     out = torch.empty((batch_size, n_samples), dtype=torch.float32, device=device)
     step = max(1, (1 << 22) // max(n_samples, 1))

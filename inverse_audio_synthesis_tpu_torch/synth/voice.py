@@ -19,6 +19,7 @@ package's name) or autograd of ``render_voice`` (``bwd="jnp"``).
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -140,10 +141,16 @@ def compute_controls(params01: torch.Tensor, config: SynthConfig):
     return p, routed, midi_f0
 
 
-def make_noise(config: SynthConfig, device=None, batch_size: Optional[int] = None):
-    """The fixed-seed noise buffer [B, Ta], made once per run by its callers."""
+def make_noise(
+    config: SynthConfig, device=None, batch_size: Optional[int] = None, row_offset: int = 0
+):
+    """The fixed-seed noise buffer [B, Ta], made once per run by its callers
+    (rows ``row_offset..row_offset + B`` of the position-keyed stream)."""
     b = config.batch_size if batch_size is None else batch_size
-    return modules.noise(prng.prng_key(config.noise_seed), b, config.buffer_size, device=device)
+    return modules.noise(
+        prng.prng_key(config.noise_seed), b, config.buffer_size, device=device,
+        row_offset=row_offset,
+    )
 
 
 def render_voice(
@@ -249,6 +256,14 @@ def render_voice_fused(
     return _render_fused(params01, config, noise)
 
 
+def render_fused_with_noise(
+    params01: torch.Tensor, config: SynthConfig, noise: torch.Tensor
+) -> torch.Tensor:
+    """The fused render with a caller-provided noise buffer: a named alias of
+    ``render_voice_fused(noise=...)``, as the JAX package keeps it."""
+    return render_voice_fused(params01, config, noise)
+
+
 def render_voice_auto(
     params01: torch.Tensor,
     config: SynthConfig,
@@ -272,3 +287,72 @@ def is_train_split(batch_num: int, config: SynthConfig, device=None) -> torch.Te
     """synth1B1-style train/test flag ([B] bool): every 10th batch is test."""
     train = (int(batch_num) % 10) != 0
     return torch.full((config.batch_size,), train, dtype=torch.bool, device=device)
+
+
+_INDEX = {(s.module, s.name): i for i, s in enumerate(VOICE_PARAM_SPECS)}
+
+
+class Voice:
+    """Stateful wrapper with the torchsynth call surface.
+
+    ``voice(batch_num)`` -> (audio [B, Ta], params01 [B, 78], is_train [B]);
+    ``voice(None)`` after ``set_parameter_0to1``/``freeze_parameters``
+    resynthesizes from the parameters set. Renders with ``render_voice_auto``
+    (the fused render where the geometry allows: the CUDA kernel on a CUDA
+    device) from a noise buffer made once. The computation underneath is
+    ``sample_voice_params``/``render_voice_auto``; training code calls those.
+    """
+
+    def __init__(self, synthconfig: SynthConfig, device="cuda"):
+        self.synthconfig = synthconfig
+        self.device = torch.device(device)
+        n = len(VOICE_PARAM_SPECS)
+        self._params01 = torch.full((synthconfig.batch_size, n), 0.5, device=self.device)
+        self._frozen_mask = torch.zeros((n,), dtype=torch.bool, device=self.device)
+        self._noise = make_noise(synthconfig, self.device)
+
+    # -- torchsynth-style parameter addressing --------------------------------
+    def get_parameters(self) -> "OrderedDict[Tuple[str, str], torch.Tensor]":
+        return OrderedDict(
+            ((s.module, s.name), self._params01[:, i]) for i, s in enumerate(VOICE_PARAM_SPECS)
+        )
+
+    def set_parameter_0to1(self, module: str, name: str, value) -> None:
+        params01 = self._params01.clone()  # tensors handed out earlier keep their values
+        params01[:, _INDEX[(module, name)]] = torch.as_tensor(value, dtype=torch.float32)
+        self._params01 = params01
+
+    def set_all_parameters_0to1(self, params01) -> None:
+        params01 = torch.as_tensor(params01, dtype=torch.float32, device=self.device)
+        if params01.shape != self._params01.shape:
+            raise ValueError(f"params01 must be {tuple(self._params01.shape)}, got {tuple(params01.shape)}")
+        self._params01 = params01.clone()
+
+    def freeze_parameters(self, keys=None) -> None:
+        """Keep the set values of these parameters through later ``voice(batch_num)``
+        calls. ``keys`` is an iterable of (module, name); None freezes all 78.
+        Repeated calls accumulate, like torchsynth's per-parameter flags."""
+        if keys is None:
+            self._frozen_mask = torch.ones_like(self._frozen_mask)
+            return
+        mask = self._frozen_mask.clone()
+        mask[[_INDEX[tuple(k)] for k in keys]] = True
+        self._frozen_mask = mask
+
+    def unfreeze_all_parameters(self) -> None:
+        self._frozen_mask = torch.zeros_like(self._frozen_mask)
+
+    # -- synthesis -------------------------------------------------------------
+    def __call__(
+        self, batch_num: Optional[int]
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        b = self.synthconfig.batch_size
+        if batch_num is not None and not bool(self._frozen_mask.all()):
+            fresh = sample_voice_params(batch_num, self.synthconfig, self.device)
+            # frozen parameters survive the resample (per-key torchsynth semantics)
+            self._params01 = torch.where(self._frozen_mask[None, :], self._params01, fresh)
+            is_train = is_train_split(batch_num, self.synthconfig, self.device)
+        else:
+            is_train = torch.ones((b,), dtype=torch.bool, device=self.device)
+        audio = render_voice_auto(self._params01, self.synthconfig, self._noise)
+        return audio, self._params01, is_train

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -48,6 +49,7 @@ from inverse_audio_synthesis_tpu_torch.synth.voice import (
     render_voice_auto,
     sample_voice_params,
 )
+from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.optim import make_optimizer, schedule_value
 
 log = logging.getLogger(__name__)
@@ -240,3 +242,30 @@ class VicregPretrainTask:
         model.eval()
         with self._autocast():
             return model.audio_repr(audio.to(self.device))
+
+    @torch.no_grad()
+    def project_audio(self, state: TrainState, audio: torch.Tensor) -> torch.Tensor:
+        """[B, 1, Ta] audio -> [B, embeddim]: the projector's output
+        (``model.embed_audio``, eval-mode towers), the retrieval eval's embedding."""
+        model: nn.Module = state.model
+        model.eval()
+        with self._autocast():
+            return model.embed_audio(audio.to(self.device))
+
+
+def restore_vicreg(
+    cfg, checkpoint_dir: Optional[str] = None
+) -> Tuple[VicregPretrainTask, TrainState, Optional[int]]:
+    """(task, state, step): a fresh task and state with the latest VICReg
+    checkpoint under ``checkpoint_dir`` (default: ``vicreg_checkpoint``, else
+    ``<run_dir>/checkpoints/vicreg``) loaded into the state; step is None, and the
+    state fresh, when there is none. A checkpoint that does not load raises."""
+    task = VicregPretrainTask(cfg)
+    state = task.init_state()
+    run_dir = Path(cfg.get("run_dir", "runs"))
+    directory = checkpoint_dir or cfg.get("vicreg_checkpoint") or str(run_dir / "checkpoints" / "vicreg")
+    checkpoint = CheckpointManager(directory)
+    step = checkpoint.latest_step()
+    if step is not None:
+        state = checkpoint.restore(state)
+    return task, state, step

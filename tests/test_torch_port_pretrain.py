@@ -302,10 +302,15 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert len(modules) >= 27  # the downstream slice's modules among them
+    assert len(modules) >= 33  # the downstream, eval and serving slices' modules among them
     assert {"inverse_audio_synthesis_tpu_torch.downstream", "inverse_audio_synthesis_tpu_torch.ops.stft",
             "inverse_audio_synthesis_tpu_torch.train.downstream",
-            "inverse_audio_synthesis_tpu_torch.train.checkpoint"} <= set(modules)
+            "inverse_audio_synthesis_tpu_torch.train.checkpoint",
+            "inverse_audio_synthesis_tpu_torch.eval.retrieval", "inverse_audio_synthesis_tpu_torch.eval.hear",
+            "inverse_audio_synthesis_tpu_torch.serve.export",
+            "inverse_audio_synthesis_tpu_torch.evaluate_audio_representations",
+            "inverse_audio_synthesis_tpu_torch.heareval",
+            "inverse_audio_synthesis_tpu_torch.export_model"} <= set(modules)
 
 
 def test_port_sources_name_no_jax():

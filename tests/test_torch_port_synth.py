@@ -78,6 +78,20 @@ def test_noise_bit_identical(n_samples):
     j = jmodules.noise(jax.random.PRNGKey(13), 3, n_samples)
     t = tvoice.modules.noise(prng.prng_key(13), 3, n_samples)
     np.testing.assert_array_equal(np.asarray(j), t.numpy())
+
+
+@pytest.mark.parametrize("row_offset", [0, 4, 128])
+def test_noise_row_offset_bit_identical(row_offset):
+    """Rows row_offset.. of the position-keyed stream, as the JAX retrieval
+    evaluator keys a candidate sub-chunk's noise; and the same rows as a slice of
+    the longer buffer the port's evaluator makes once."""
+    j = jmodules.noise(jax.random.PRNGKey(13), 3, 4410, row_offset=row_offset)
+    t = tvoice.modules.noise(prng.prng_key(13), 3, 4410, row_offset=row_offset)
+    np.testing.assert_array_equal(np.asarray(j), t.numpy())
+    cfg = SynthConfig(batch_size=3, buffer_size_seconds=0.1)
+    longer = tvoice.make_noise(cfg, batch_size=row_offset + 3)
+    np.testing.assert_array_equal(longer[row_offset:].numpy(), t.numpy())
+    np.testing.assert_array_equal(tvoice.make_noise(cfg, row_offset=row_offset).numpy(), t.numpy())
     # rows are position-keyed: the buffer of a larger batch starts with this one
     cfg = SynthConfig(batch_size=4, buffer_size_seconds=0.1)
     np.testing.assert_array_equal(
@@ -266,3 +280,46 @@ def test_maximum_and_clip_split_ties():
     np.testing.assert_array_equal(gc.numpy(), np.asarray(jax.grad(lambda v: jnp.clip(v, 0.0, 1.0).sum())(jx)))
     np.testing.assert_array_equal(tmodules.clip(x, 0.0, 1.0).detach().numpy(),
                                   torch.clamp(x, 0.0, 1.0).detach().numpy())
+
+
+# -- the Voice wrapper ------------------------------------------------------------------
+
+
+def test_voice_wrapper_matches_jax():
+    """The torchsynth-style surface against the JAX ``Voice``: the same parameters
+    bit for bit through sampling, setting, accumulated freezing and unfreezing;
+    the audio within the portable render's bound (the 0.05 s geometry is not
+    the fused render's, so both render with render_voice)."""
+    jcfg, cfg = JSynthConfig(batch_size=4, buffer_size_seconds=0.05), SynthConfig(4, buffer_size_seconds=0.05)
+    jv, tv = jvoice.Voice(jcfg), tvoice.Voice(cfg, device="cpu")
+
+    def both(batch_num):
+        (ja, jp, jt), (ta, tp, tt) = jv(batch_num), tv(batch_num)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        assert ta.shape == (4, cfg.buffer_size) and np.isfinite(ta.numpy()).all()
+        assert np.abs(ta.numpy() - np.asarray(ja)).max() < 0.08
+        return tp
+
+    both(11)
+    assert tv.get_parameters()[("keyboard", "midi_f0")].shape == (4,)
+    assert tv(11)[2].all() and not tv(10)[2].any()  # batch 10 is a test batch
+    p10 = both(10)
+    for v in (jv, tv):
+        v.set_parameter_0to1("vco_1", "tuning", 0.25)
+        v.freeze_parameters([("vco_1", "tuning")])
+        v.freeze_parameters([("mixer", "noise")])  # accumulates
+    p = both(3)
+    i = [(s.module, s.name) for s in tvoice.VOICE_PARAM_SPECS].index(("vco_1", "tuning"))
+    assert (p[:, i] == 0.25).all() and not torch.equal(p, p10)
+    both(None)  # resynthesizes the set parameters
+    for v in (jv, tv):
+        v.set_all_parameters_0to1(np.asarray(p10))
+        v.freeze_parameters()
+    assert torch.equal(both(7), p10)
+    for v in (jv, tv):
+        v.unfreeze_all_parameters()
+    both(7)
+    with pytest.raises(ValueError):
+        tv.set_all_parameters_0to1(np.zeros((3, 78), np.float32))
+    assert list(tv.get_parameters())[:2] == [("keyboard", "midi_f0"), ("keyboard", "duration")]
