@@ -44,7 +44,30 @@ Phases, each printing its own lines:
   8. export: embed_audio, predict_params (a fresh head on the frozen towers) and
      render exported with torch.export, saved, reloaded and run on the card
      against the live functions;
-  9. one JSON line listing every ported kernel with its launches and times.
+  9. the multi-rank path (inverse_audio_synthesis_tpu_torch/parallel), with the
+     kernels built above before any rank starts: a plain one-process run (no
+     process group) of 8 bf16 pretraining steps (timing), then, with
+     precision=f32 and TF32 off for matmuls and cuDNN, 2 VICReg steps and a val
+     step at the full config (param_embed.dropout 0.1), a downstream test step,
+     one train step and a test step at batch 1024 for the combined objective
+     and for param_mse, and 2 retrieval batches of 1024 candidates; then the
+     same runs on (a) one rank over NCCL, (b) 2 ranks (mesh data=2 model=1) and
+     4 ranks (data=2 model=2) sharing the card over gloo. Held against the
+     plain run: each rank's K1 audio rows and K2 d_routed/d_scalars rows bit
+     for bit; every metric within rtol 2e-4 / atol 1e-5 (the test steps before
+     the update, and param_mse's after it); pretraining's and param_mse's
+     reduced gradient (norm within 1%, each tensor within 5%) and parameters
+     after one step (max(4e-6, 5% of the update), 25% for 1-D; the full
+     config's warmup gives the first pretraining step a learning rate of 0, so
+     there the gradient is the check); the combined step's gradient
+     norm within a factor 3/2 (its update is ill-conditioned: the plain run
+     measures how far a one-ulp change of the head's input moves it); the same
+     retrieved candidates. Printed per world: the backend, per rank K1/K2
+     launches, all_reduce calls and bytes per step, peak memory and step times
+     (ranks sharing one card over gloo: not a scaling figure); and the bf16
+     default config's pretraining step time on one NCCL rank beside the same
+     steps without a process group;
+ 10. one JSON line listing every ported kernel with its launches and times.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero and
 prints no result. The script needs a CUDA device and the repository beside it.
 """
@@ -671,6 +694,209 @@ def phase_export(ckpt_dir: Path) -> None:
             raise AssertionError(f"the {name} artifact holds {size} bytes: weights baked in?")
 
 
+PARALLEL_WORLDS = (("1 rank, NCCL", 1, 1, "nccl"), ("2 ranks (2x1), gloo", 2, 1, "gloo"),
+                   ("4 ranks (2x2), gloo", 2, 2, "gloo"))
+PARALLEL_F32 = ["precision=f32", "audio_to_params.mel_chunk=64"]
+PARALLEL_BATCHES = (11, 12)
+TIMING_STEPS = 8
+RUNS = ("timing", "pretrain", "combined", "param_mse", "retrieval")
+
+
+def _parallel_calls(mesh, keep_init=False):
+    """The runs each world and the plain process make, in the order of RUNS: bf16
+    timing steps at torch's defaults, then the f32 comparisons."""
+    f32 = PARALLEL_F32 + mesh
+    down = dict(batch_num=14, test_batch=15, keep_init=keep_init)
+    return [
+        ("pretrain", dict(overrides=mesh, batch_nums=tuple(range(100, 100 + TIMING_STEPS)),
+                          val_batch=None, tf32=None)),
+        ("pretrain", dict(overrides=f32, batch_nums=PARALLEL_BATCHES, val_batch=13, keep_init=keep_init,
+                          params_after=1)),
+        ("downstream", dict(overrides=f32 + ["audio_to_params.loss=combined"], **down)),
+        ("downstream", dict(overrides=f32 + ["audio_to_params.loss=param_mse"], **down)),
+        ("retrieval", dict(overrides=f32, batch_nums=(1, 2), n_queries=16, n_candidates=1024,
+                           inner_chunk=128)),
+    ]
+
+
+def _close_params(ref, got, init, what, strict=True):
+    """max over tensors of delta / max(4e-6, 5% (25% for 1-D) of the update)."""
+    worst = 0.0
+    for k, a in ref.items():
+        a, b, p0 = a.double(), got[k].double(), init[k].double()
+        delta = float((a - b).abs().max())
+        limit = max(4e-6, (0.05 if a.dim() >= 2 else 0.25) * float((a - p0).abs().max()))
+        worst = max(worst, delta / limit)
+        if strict and delta > limit:
+            raise AssertionError(f"{what} parameter {k}: {delta:.3e} from one process, limit {limit:.3e}")
+    return worst
+
+
+def _close_metrics(ref, got, what):
+    import numpy as np
+
+    for k, v in ref.items():
+        a = v.numpy() if hasattr(v, "numpy") else v
+        b = got[k].numpy() if hasattr(got[k], "numpy") else got[k]
+        if not np.allclose(b, a, rtol=2e-4, atol=1e-5):
+            raise AssertionError(f"{what} metric {k}: {b} vs one process {a}")
+
+
+def _grad_gap(ref, got):
+    """(norm ratio, ||got - ref|| / ||ref|| over all tensors, (worst tensor's
+    ||got - ref|| / (||ref|| + 1e-3 of the largest tensor norm), its name)). The
+    floor leaves out the biases that feed a BatchNorm, whose gradient is zero in
+    exact arithmetic and rounding noise in any run."""
+    import torch
+
+    norm = lambda d: float(torch.sqrt(sum(torch.sum(v.double() ** 2) for v in d.values())))
+    diff = {k: got[k].double() - ref[k].double() for k in ref}
+    floor = 1e-3 * max(float(v.norm()) for v in ref.values())
+    worst = max((float(diff[k].norm()) / (float(ref[k].norm()) + floor), k) for k in ref)
+    return norm(got) / norm(ref), norm(diff) / norm(ref), worst
+
+
+def _check_world(name, ref, ranks, model):
+    """Hold one world's runs against the plain process's, in the order of RUNS;
+    print its figures. The combined step's update is not held to rounding: see
+    the conditioning probe in phase_parallel."""
+    import numpy as np
+    import torch
+
+    _, pre, comb, mse, ret = ref
+    for what, i in (("pretrain", 1), ("downstream", 2)):
+        for r in ranks:
+            got, want, rows = r[i]["kernels"], ref[i]["kernels"], slice(*r[i]["rows"])
+            same = {k: bool(torch.equal(got[k], want[k][rows])) for k in ("audio", "d_routed", "d_scalars")}
+            if not all(same.values()):
+                raise AssertionError(f"{name} rank {r[i]['rank']} {what} rows {r[i]['rows']}: "
+                                     f"bit-identical to one process: {same}")
+    log(f"[parallel] {name}: every rank's K1 audio and K2 d_routed/d_scalars rows bit-identical "
+        f"to the one-process rows (pretrain batch {PARALLEL_BATCHES[0]}, downstream batch 14)")
+    for r in ranks:
+        label = f"{name} rank {r[1]['rank']}"
+        for step, (a, b) in enumerate(zip(pre["metrics"], r[1]["metrics"])):
+            _close_metrics(a, b, f"{label} pretrain step {step}")
+        _close_metrics(pre["val"], r[1]["val"], f"{label} val")
+        for run, got in (("combined", r[2]), ("param_mse", r[3])):
+            _close_metrics(ref[RUNS.index(run)]["metrics"], got["metrics"], f"{label} {run}")
+            _close_metrics(ref[RUNS.index(run)]["test_init"], got["test_init"], f"{label} {run} test before")
+        _close_metrics(mse["test"], r[3]["test"], f"{label} param_mse test after the step")
+        if not (np.allclose(r[4]["best_dist"], ret["best_dist"], rtol=1e-4, atol=1e-5)
+                and np.allclose(r[4]["best_params"], ret["best_params"], rtol=1e-5, atol=1e-6)):
+            raise AssertionError(f"{label}: other retrieved candidates")
+        for i in (1, 2, 3):  # the replica on data index 0 holds the same shard
+            if r[i]["digest"] != ranks[r[i]["rank"] % model][i]["digest"]:
+                raise AssertionError(f"{label} {RUNS[i]}: parameters differ from its replica")
+    figures = {}
+    for i in (1, 3):
+        ratio, rel, worst = _grad_gap(ref[i]["grads"], ranks[0][i]["grads"])
+        if abs(ratio - 1.0) > 1e-2 or worst[0] > 0.05:
+            raise AssertionError(f"{name} {RUNS[i]} gradient: norm ratio {ratio}, worst tensor {worst}")
+        figures[RUNS[i]] = (ratio, rel, _close_params(ref[i]["params"], ranks[0][i]["params"], ref[i]["init"],
+                                                      f"{name} {RUNS[i]}"))
+    ratio, rel, _ = _grad_gap(comb["grads"], ranks[0][2]["grads"])
+    if not 2 / 3 < ratio < 3 / 2:  # a gradient counted W times, or 1/W, is outside
+        raise AssertionError(f"{name} combined gradient norm ratio {ratio}")
+    figures["combined"] = (ratio, rel, _close_params(comb["params"], ranks[0][2]["params"], comb["init"],
+                                                     f"{name} combined", strict=False))
+    same_audio = all(bool(torch.equal(r[4]["best_audio"], ret["best_audio"])) for r in ranks)
+    log(f"[parallel] {name}: metrics within rtol 2e-4 / atol 1e-5 on every rank (train steps, val, both "
+        f"downstream test steps before the update, param_mse's after it); the same retrieved candidates "
+        f"(audio bit-identical: {same_audio}); gradient norm ratio, relative difference and parameters' "
+        f"worst share of their bound: " + "; ".join(f"{k} {v[0]:.6f}, {v[1]:.3e}, {v[2]:.3f}"
+                                                   for k, v in figures.items()))
+    for r in ranks:
+        pre_r, comb_r, ret_r = r[1], r[2], r[4]
+        log(f"[parallel] {name} rank {pre_r['rank']} ({pre_r['backend']}, rows {pre_r['rows']}): launches "
+            f"pretrain {pre_r['launches']} combined {comb_r['launches']} retrieval {ret_r['launches']}; "
+            f"all_reduce per step: pretrain {pre_r['all_reduce_per_step']['calls']:.0f} calls "
+            f"{pre_r['all_reduce_per_step']['bytes'] / 1e6:.2f} MB, combined "
+            f"{comb_r['all_reduce_per_step']['calls']:.0f} calls {comb_r['all_reduce_per_step']['bytes'] / 1e6:.2f} MB, "
+            f"retrieval per batch {ret_r['all_reduce_per_step']['calls']:.0f} calls "
+            f"{ret_r['all_reduce_per_step']['bytes'] / 1e6:.2f} MB; peak memory pretrain "
+            f"{pre_r['peak_bytes'] / 1e9:.2f} GB combined {comb_r['peak_bytes'] / 1e9:.2f} GB retrieval "
+            f"{ret_r['peak_bytes'] / 1e9:.2f} GB; f32 step times pretrain "
+            f"{[round(t * 1e3, 1) for t in pre_r['step_s']]} ms combined {comb_r['step_s'][0] * 1e3:.1f} ms "
+            f"retrieval {[round(t * 1e3, 1) for t in ret_r['step_s']]} ms")
+        for run, need in ((pre_r, ("render_fwd",)), (comb_r, ("render_fwd", "render_bwd")),
+                          (ret_r, ("render_fwd",))):
+            if any(run["launches"][k] < 1 for k in need):
+                raise AssertionError(f"{name} rank {run['rank']}: a kernel of the path was not launched: "
+                                     f"{run['launches']}")
+
+
+def _release_cuda() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(worlds=PARALLEL_WORLDS) -> dict:
+    """The multi-rank path; see the module docstring, item 9. ``worlds``: (name,
+    data, model, backend) per world; rank r runs on cuda:r % device_count."""
+    import os
+    import statistics as st
+
+    from inverse_audio_synthesis_tpu_torch.parallel import jobs
+    from inverse_audio_synthesis_tpu_torch.parallel.launch import spawn_world
+
+    t0 = time.time()
+    plain = [getattr(jobs, n)(**kw) for n, kw in _parallel_calls([], keep_init=True)]
+    timing_plain = st.median(plain[0]["step_s"][2:]) * 1e3
+    # the combined step's conditioning: the same step with each value of the
+    # frozen representation one float32 ulp away
+    comb = _parallel_calls([], keep_init=True)[2][1]
+    probe = jobs.downstream(**comb, perturb_repr=True)
+    probe_ratio, probe_rel, _ = _grad_gap(plain[2]["grads"], probe["grads"])
+    probe_params = _close_params(plain[2]["params"], probe["params"], plain[2]["init"], "probe", strict=False)
+    log(f"[parallel] one process, no process group: pretraining f32 loss {plain[1]['metrics'][-1]['vicreg/train/loss']:.6f}, "
+        f"combined loss {plain[2]['metrics']['audio_to_params/train/loss']:.6f}, retrieval best distances mean "
+        f"{float(plain[4]['best_dist'].mean()):.5f}; in {time.time() - t0:.1f} s")
+    log(f"[parallel] the combined step's conditioning, one process: the frozen representation moved by one "
+        f"float32 ulp moves the gradient by {probe_rel:.3e} of its norm (norm ratio {probe_ratio:.6f}) and "
+        f"the parameters by {probe_params:.3f} of their bound (5% of the update, 25% for 1-D); the "
+        f"grad-through-synth term amplifies rounding, so that step's update is compared by its norm only")
+    del plain[0]["params"], plain[0]["grads"], probe
+    _release_cuda()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")  # the ranks' allocators
+    out = {"worlds": {}, "plain_timing_ms": timing_plain, "conditioning_grad_rel": probe_rel,
+           "conditioning_norm_ratio": probe_ratio}
+    for name, data, model, backend in worlds:
+        t0 = time.time()
+        mesh = [f"mesh.data={data}", f"mesh.model={model}"]
+        ranks = spawn_world(data * model, jobs.run_all, (_parallel_calls(mesh),), backend=backend, timeout=900)
+        backends = sorted({r[1]["backend"] for r in ranks})
+        log(f"[parallel] {name}: mesh data={data} model={model}, backend {backends}, ran in "
+            f"{time.time() - t0:.1f} s")
+        if backends != [backend]:
+            raise AssertionError(f"{name} ran on {backends}, not {backend}")
+        _check_world(name, plain, ranks, model)
+        timing = st.median(ranks[0][0]["step_s"][2:]) * 1e3
+        out["worlds"][name] = {
+            "launches_per_rank": [{"pretrain": r[1]["launches"], "downstream_combined": r[2]["launches"],
+                                   "retrieval": r[4]["launches"]} for r in ranks],
+            "all_reduce_per_step": ranks[0][1]["all_reduce_per_step"],
+            "bf16_pretrain_step_ms": timing,
+        }
+        if data * model == 1:
+            out["nccl_timing_ms"] = timing
+            log(f"[parallel] the distributed path's own cost, bf16 default config, pretraining batch 16, "
+                f"median of steps 3-{TIMING_STEPS}: one {backend} rank {timing:.1f} ms a step, no process "
+                f"group {timing_plain:.1f} ms ({timing / timing_plain:.3f}x)")
+        elif backend == "gloo":
+            log(f"[parallel] {name}: bf16 pretraining step {timing:.1f} ms (ranks share one card over gloo, "
+                f"which stages every all_reduce through the host: not a scaling figure)")
+        else:
+            log(f"[parallel] {name}: bf16 pretraining step {timing:.1f} ms, batch 16 over {data} data ranks; "
+                f"one process on one card {timing_plain:.1f} ms")
+        del ranks
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -712,6 +938,8 @@ def main() -> int:
         retrieval = phase_retrieval(ckpt_dir, render[128]["ms"])
         phase_hear(ckpt_dir)
         phase_export(ckpt_dir)
+    _release_cuda()
+    parallel = phase_parallel()
 
     def entry(name, source, replaces, by_batch, main_batch):
         main = by_batch[main_batch]
@@ -733,6 +961,8 @@ def main() -> int:
             "launches_by_path": {"vicreg_pretrain": train["launches"][name],
                                  "downstream_combined": downstream["launches"][name],
                                  "retrieval": retrieval["launches"][name]},
+            "launches_per_rank": {world: [{path: r[path][name] for path in r} for r in w["launches_per_rank"]]
+                                  for world, w in parallel["worlds"].items()},
             "by_batch": {str(b): {**{k: v[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
                                   "share_of_bound": v["bound_ms"] / v["ms"]}
                          for b, v in by_batch.items() if isinstance(b, int)},

@@ -10,6 +10,8 @@ Layer map (module names follow the JAX package, so each has its counterpart):
 - ``models``  — towers (AudioEmbedding, ParamEmbed, MobileNetV3-Small), the VICReg
                 projector and loss, and ``jax_weights`` to carry JAX weights across.
 - ``train``   — VICReg pretraining task, LARS and its schedule, the training loop.
+- ``parallel``— the (data, model) mesh over ``torch.distributed``, collectives
+                built on ``all_reduce``, the ``torchrun``/spawn launcher.
 - ``utils``   — config tree (YAML composition with overrides), metrics logging.
 
 The package imports torch and never JAX or the JAX package.

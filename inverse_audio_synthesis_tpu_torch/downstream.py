@@ -9,32 +9,33 @@ as the port's ``pretrain`` CLI writes it), or warns and uses random towers; trai
 the head with checkpoints under ``<run_dir>/checkpoints/audio_to_params`` and
 resumes from them when rerun; then runs the test pass, reports each metric's mean
 and std over the test batches and writes the per-parameter MAE as a CSV. Runs on
-the CUDA device; ``platform=cpu`` runs on the CPU.
+the CUDA device; ``platform=cpu`` runs on the CPU. Under ``torchrun`` each process
+is a rank of the ``mesh.data`` x ``mesh.model`` mesh; rank 0 alone prints, logs
+and writes files, from the global batch's metrics.
 """
 
 from __future__ import annotations
 
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from inverse_audio_synthesis_tpu_torch.pretrain import restore_latest
+from inverse_audio_synthesis_tpu_torch.parallel.launch import is_main_process
+from inverse_audio_synthesis_tpu_torch.pretrain import make_logger, restore_latest, run_cli
 from inverse_audio_synthesis_tpu_torch.synth.voice import VOICE_PARAM_SPECS
 from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.downstream import AudioToParamsTask
 from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
 from inverse_audio_synthesis_tpu_torch.train.pretrain import restore_vicreg
 from inverse_audio_synthesis_tpu_torch.train.runsetup import runsetup
-from inverse_audio_synthesis_tpu_torch.utils.config import load_config
-from inverse_audio_synthesis_tpu_torch.utils.logging import MetricsLogger
 
 
 def evaluate_test_split(task: AudioToParamsTask, state, split, logger) -> Path:
     """Every test batch through ``test_step``; logs each batch's scalars and audio,
-    the mean and std over batches, and writes the per-parameter MAE CSV."""
+    the mean and std over batches, and writes the per-parameter MAE CSV. Every
+    rank runs the test steps; the one with ``logger`` (rank 0) reports."""
     per_param, per_param_base, scalar_rows = [], [], []
     for i in range(split.sizes.test):
         metrics, true_audio, pred_audio = task.test_step(state, split.test_batch_num(i))
@@ -44,8 +45,11 @@ def evaluate_test_split(task: AudioToParamsTask, state, split, logger) -> Path:
         )
         scalars = {k: float(v) for k, v in metrics.items()}
         scalar_rows.append(scalars)
-        logger.log(scalars)
-        task.log_audio_triplets(logger, true_audio, pred_audio, batch_idx=i)
+        if logger is not None:
+            logger.log(scalars)
+            task.log_audio_triplets(logger, true_audio, pred_audio, batch_idx=i)
+    if logger is None:
+        return None
     if len(scalar_rows) > 1:
         summary = {}
         for k in scalar_rows[0]:
@@ -81,28 +85,28 @@ def app(cfg) -> int:
     run_dir = Path(cfg.get("run_dir", "runs"))
     pretrain_task, vicreg_state, step = restore_vicreg(cfg)
     device = pretrain_task.device
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"device: {device} ({name})")
-    if step is not None:
-        print(f"loaded vicreg checkpoint step {step}")
-    else:
-        print("WARNING: no vicreg checkpoint found; using random towers")
+    main = is_main_process()
+    if main:
+        name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+        print(f"device: {device} ({name}); mesh data={pretrain_task.mesh.data} "
+              f"model={pretrain_task.mesh.model}")
+        if step is not None:
+            print(f"loaded vicreg checkpoint step {step}")
+        else:
+            print("WARNING: no vicreg checkpoint found; using random towers")
 
     task = AudioToParamsTask(cfg, pretrain_task, vicreg_state)
     del pretrain_task, vicreg_state  # the task keeps its own frozen copy
     state = task.init_state()
-    print(f"objective: {task.loss_kind}; render backward: {task.render_bwd}; render: "
-          f"{'fused' if task.fused_render else 'portable render_voice'}")
+    if main:
+        print(f"objective: {task.loss_kind}; render backward: {task.render_bwd}; render: "
+              f"{'fused' if task.fused_render else 'portable render_voice'}")
 
-    logger = MetricsLogger(
-        run_dir=str(run_dir),
-        config=cfg.to_dict(),
-        use_wandb=cfg.get("log") == "wand",
-        run_name="downstream-torch-" + time.strftime("%Y%m%d-%H%M%S"),
-    )
+    logger = make_logger(cfg, run_dir, "downstream")
     checkpoint = CheckpointManager(
         directory=str(run_dir / "checkpoints" / "audio_to_params"),
         every_n_steps=cfg.audio_to_params.checkpoint_every_nbatches,
+        mesh=task.mesh,
     )
     trainer = Trainer(
         task,
@@ -117,14 +121,17 @@ def app(cfg) -> int:
         state = trainer.fit(state, start_step=start)
         if trainer.interrupted is not None:
             # no test pass over a half-trained head; rerunning resumes
-            print(f"stopped by signal {trainer.interrupted}; checkpoint saved")
+            if main:
+                print(f"stopped by signal {trainer.interrupted}; checkpoint saved")
             return 75
         evaluate_test_split(task, state, split, logger)
     finally:
-        logger.finish()
-    print(f"metrics written to {logger.dir}")
+        if logger is not None:
+            logger.finish()
+    if main:
+        print(f"metrics written to {logger.dir}")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(app(load_config(overrides=sys.argv[1:])))
+    sys.exit(run_cli(app, sys.argv[1:]))

@@ -24,6 +24,15 @@ What differs from the JAX evaluator, and why:
 - ``state.npz`` files do not carry over between the two packages: the weights
   fingerprint is a float32 sum over the query embeddings, which the packages
   round differently.
+
+Under a distributed mesh (``parallel/mesh.py``) the sub-chunks of a candidate
+batch are split over the data group, in contiguous blocks: each rank renders its
+sub-chunks (and holds only their noise rows), embeds them and keeps, per query,
+its first nearest candidate. The ranks' (distance, audio, parameters) are
+gathered, and every rank applies them in rank order with
+the sequential rule (strict ``<``): the result takes, per query, the lowest
+global index among equal minima, as one rank does. Every rank keeps the same
+state; rank 0 alone writes ``state.npz`` and the artifacts.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from inverse_audio_synthesis_tpu_torch.parallel.collectives import agree_max, barrier, gather_rows
+from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh
 from inverse_audio_synthesis_tpu_torch.synth import SynthConfig
 from inverse_audio_synthesis_tpu_torch.synth.voice import (
     make_noise,
@@ -78,15 +89,21 @@ class RetrievalEvaluator:
         query_batch_num: int = 0,
         inner_chunk: int = 128,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         self.embed_fn = embed_fn
         self.device = torch.device(device)
+        self.mesh = mesh or Mesh()
         self.query_synth = query_synth
         self.candidate_synth = candidate_synth
         bs = candidate_synth.batch_size
         self.inner_chunk = min(inner_chunk, bs)
         if bs % self.inner_chunk:
             raise ValueError(f"inner_chunk {self.inner_chunk} must divide the candidate batch {bs}")
+        if (bs // self.inner_chunk) % self.mesh.data:
+            raise ValueError(f"the {bs // self.inner_chunk} sub-chunks of a candidate batch do "
+                             f"not split over mesh.data={self.mesh.data}")
+        self.rows = self.mesh.local_rows(bs)  # this rank's candidates: whole sub-chunks
         # what each sub-chunk renders
         self._sub_synth = replace(candidate_synth, batch_size=self.inner_chunk, reproducible=False)
 
@@ -101,7 +118,9 @@ class RetrievalEvaluator:
         # resuming under other weights would mix two embedding spaces. The chunking
         # and batch size are checked as separate exact fields.
         self.state_fingerprint = float(torch.sum(torch.abs(self.query_emb.float())))
-        self._noise = make_noise(candidate_synth, self.device)
+        self._noise = make_noise(
+            candidate_synth, self.device, self.rows.stop - self.rows.start, self.rows.start
+        )
         n_q = query_synth.batch_size
         self.best_dist = torch.full((n_q,), float("inf"), device=self.device)
         self.best_audio = torch.zeros((n_q, candidate_synth.buffer_size), device=self.device)
@@ -113,11 +132,13 @@ class RetrievalEvaluator:
     def step(self, batch_num: int) -> np.ndarray:
         """Process one candidate batch; returns the per-query improvement mask."""
         k = self.inner_chunk
-        params = sample_voice_params(batch_num, self.candidate_synth, self.device)
+        params = sample_voice_params(batch_num, self.candidate_synth, self.device)[self.rows]
         query_emb = self.query_emb.float()
         before = self.best_dist
         best_dist, best_audio, best_params = self.best_dist, self.best_audio, self.best_params
-        for start in range(0, self.candidate_synth.batch_size, k):
+        if self.mesh.distributed:  # this rank's own first minima, merged below
+            best_dist = torch.full_like(best_dist, float("inf"))
+        for start in range(0, params.shape[0], k):
             sub = params[start : start + k]
             # named ranges, read by tools/profile_torch_port_step.py --task retrieval
             with record_function("retrieval/render"):
@@ -132,8 +153,26 @@ class RetrievalEvaluator:
                 best_dist = torch.where(improved, chunk_min, best_dist)
                 best_audio = torch.where(improved[:, None], audio[chunk_arg], best_audio)
                 best_params = torch.where(improved[:, None], sub[chunk_arg], best_params)
+        if self.mesh.distributed:
+            best_dist, best_audio, best_params = self._merge(best_dist, best_audio, best_params)
         self.best_dist, self.best_audio, self.best_params = best_dist, best_audio, best_params
         return (best_dist < before).cpu().numpy()
+
+    def _merge(self, dist, audio, params):
+        """The running state updated with every rank's first minima, in rank
+        order under the sequential rule. Ranks hold contiguous blocks of the
+        candidates, so rank order is global index order."""
+        packed = torch.cat([dist[:, None], params, audio], dim=1)[None]
+        every = gather_rows(packed, self.mesh)  # [data, n_q, 1 + nparams + Ta], exact
+        best_dist, best_audio, best_params = self.best_dist, self.best_audio, self.best_params
+        n_p = params.shape[1]
+        for r in range(self.mesh.data):
+            d, p, a = every[r, :, 0], every[r, :, 1 : 1 + n_p], every[r, :, 1 + n_p :]
+            improved = d < best_dist
+            best_dist = torch.where(improved, d, best_dist)
+            best_audio = torch.where(improved[:, None], a, best_audio)
+            best_params = torch.where(improved[:, None], p, best_params)
+        return best_dist, best_audio, best_params
 
     @torch.no_grad()
     def planted_query_distance(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -145,7 +184,7 @@ class RetrievalEvaluator:
         keying, renderer, embedding)."""
         n_q = self.query_params.shape[0]
         planted_synth = replace(self._sub_synth, batch_size=n_q)
-        if n_q <= self._noise.shape[0]:
+        if self.rows.start == 0 and n_q <= self._noise.shape[0]:
             noise = self._noise[:n_q]
         else:
             noise = make_noise(self.candidate_synth, self.device, n_q)
@@ -252,20 +291,24 @@ class RetrievalEvaluator:
         state_file = Path(artifact_dir) / "state.npz" if artifact_dir else None
         history: list = []  # per-batch min-distance snapshots
         start = 0
+        writer = self.mesh.rank == 0
+        barrier(self.mesh)  # rank 0's last state file is whole before any rank reads it
         if resume and state_file is not None and state_file.exists():
             loaded = self._load_state(state_file)
             if loaded is not None:
                 history, start = loaded
 
         def save_state(batches_done: int) -> None:
-            if state_file is not None and history:
+            if writer and state_file is not None and history:
                 self._save_state(state_file, history, batches_done)
 
         prev = self.best_dist.cpu().numpy()
         batches_done = start
         with PreemptionGuard() as guard:
             for i in range(start, n_batches):
-                if guard.requested is not None:
+                requested = agree_max(guard.requested, self.mesh)
+                if requested is not None:
+                    guard.requested = int(requested)
                     save_state(i)
                     print(f"retrieval: preempted at batch {i}, state saved")
                     break
@@ -283,7 +326,7 @@ class RetrievalEvaluator:
             else:
                 save_state(n_batches)
         history_arr = np.stack(history) if history else np.zeros((0,))
-        if artifact_dir is not None and len(history):
+        if writer and artifact_dir is not None and len(history):
             _write_convergence_artifacts(artifact_dir, history_arr)
         if guard.requested == signal.SIGINT and batches_done < n_batches:
             # stopped early by ctrl-C (one landing in the final batch does not undo

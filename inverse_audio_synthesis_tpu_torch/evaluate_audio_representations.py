@@ -12,23 +12,25 @@ planted-query gate, then streams ``retrieval.n_batches`` candidate batches of
 logging each improvement as a (query, silence, match) clip. State and the
 convergence curves go to ``<run_dir>/retrieval``; a rerun resumes. Exits 75 when
 stopped by a signal. Runs on the CUDA device; ``platform=cpu`` runs on the CPU.
+Under ``torchrun`` the sub-chunks of each candidate batch are split over
+``mesh.data`` (``eval/retrieval.py``); rank 0 alone prints and writes files.
 """
 
 from __future__ import annotations
 
 import sys
-import time
 from pathlib import Path
 
 from inverse_audio_synthesis_tpu_torch.eval.retrieval import RetrievalEvaluator
+from inverse_audio_synthesis_tpu_torch.parallel.launch import is_main_process
+from inverse_audio_synthesis_tpu_torch.pretrain import make_logger, run_cli
 from inverse_audio_synthesis_tpu_torch.train.pretrain import restore_vicreg, synth_config_from_cfg
-from inverse_audio_synthesis_tpu_torch.utils.config import load_config
-from inverse_audio_synthesis_tpu_torch.utils.logging import MetricsLogger
 
 
 def app(cfg) -> int:
     task, state, step = restore_vicreg(cfg)
-    if step is not None:
+    main = is_main_process()
+    if step is not None and main:
         print(f"loaded vicreg checkpoint step {step}")
     run_dir = Path(cfg.get("run_dir", "runs"))
     # the reference's 16 queries and 1024-candidate batches
@@ -36,12 +38,7 @@ def app(cfg) -> int:
     predict_bs = cfg.get_dotted("retrieval.predict_batch_size", 1024)
     n_batches = cfg.get_dotted("retrieval.n_batches", 100)
 
-    logger = MetricsLogger(
-        run_dir=str(run_dir),
-        config=cfg.to_dict(),
-        use_wandb=cfg.get("log") == "wand",
-        run_name="retrieval-torch-" + time.strftime("%Y%m%d-%H%M%S"),
-    )
+    logger = make_logger(cfg, run_dir, "retrieval")
     try:
         evaluator = RetrievalEvaluator(
             embed_fn=lambda audio: task.project_audio(state, audio),
@@ -49,12 +46,14 @@ def app(cfg) -> int:
             candidate_synth=synth_config_from_cfg(cfg, predict_bs),
             inner_chunk=cfg.get_dotted("retrieval.inner_chunk", 128),
             device=task.device,
+            mesh=task.mesh,
         )
         # the query params rendered through the candidate pipeline must sit at
         # distance ~0 from the stored query embeddings before millions of
         # candidates are streamed
         evaluator.assert_planted_queries_found()
-        print("planted-query check OK (query/candidate pipelines consistent)")
+        if main:
+            print("planted-query check OK (query/candidate pipelines consistent)")
         result = evaluator.run(
             n_batches,
             logger=logger,
@@ -63,9 +62,12 @@ def app(cfg) -> int:
         )
         if not result["completed"]:
             # partial distances are not the final metric; a rerun resumes
-            print(f"preempted after {result['batches_done']}/{n_batches} candidate "
-                  "batches; state saved — rerun to resume")
+            if main:
+                print(f"preempted after {result['batches_done']}/{n_batches} candidate "
+                      "batches; state saved — rerun to resume")
             return 75
+        if not main:
+            return 0
         print("final per-query min distances:", result["best_dist"].round(4).tolist())
         print(
             "NN param-MAE (chance floor 0.333):",
@@ -79,9 +81,10 @@ def app(cfg) -> int:
             "retrieval/mean_nn_param_mae": float(result["nn_param_mae"].mean()),
         })
     finally:
-        logger.finish()
+        if logger is not None:
+            logger.finish()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(app(load_config(overrides=sys.argv[1:])))
+    sys.exit(run_cli(app, sys.argv[1:]))

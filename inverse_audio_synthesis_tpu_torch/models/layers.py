@@ -10,6 +10,13 @@
   batch_stats discarded).
 - ``Dropout``: flax's ``where(keep, x / keep_prob, 0)``, drawing its mask from an
   explicit ``torch.Generator`` when one is set.
+- Under a distributed mesh (``parallel/mesh.py:apply_mesh`` sets ``mesh``), train
+  mode BatchNorm takes its statistics over the global batch of its data group, as
+  flax does under GSPMD: per-rank sums of x and x^2, one ``sum_over`` (whose
+  backward sums the statistics' partial gradients), then the same E[x^2] - E[x]^2.
+  The running statistics stay identical on every rank of the group. Dropout draws
+  the mask of the global batch, as one rank would, and keeps its rows: the mask
+  does not depend on the mesh.
 - ``lecun_normal_``: flax's default kernel init (truncated normal, fan-in).
 """
 
@@ -21,6 +28,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from inverse_audio_synthesis_tpu_torch.parallel.collectives import sum_over
+
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
     """variance_scaling(1, fan_in, truncated_normal): std = sqrt(1/fan_in) / .8796."""
@@ -31,6 +40,8 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> torch.Te
 
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 (channels/features) with flax.linen's semantics."""
+
+    mesh = None
 
     def __init__(self, num_features: int, eps: float, momentum: float, out_dtype=torch.float32):
         super().__init__()
@@ -48,8 +59,12 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            mean = xf.mean(dims)
-            mean2 = (xf * xf).mean(dims)
+            count = xf.numel() // xf.shape[1]
+            sums = torch.stack([xf.sum(dims), (xf * xf).sum(dims)])
+            if self.mesh is not None:
+                sums = sum_over(sums, self.mesh.data_group)
+                count *= self.mesh.data
+            mean, mean2 = (sums / count).unbind(0)
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
             if self.update_stats:
                 with torch.no_grad():
@@ -66,6 +81,8 @@ class BatchNorm(nn.Module):
 class Dropout(nn.Module):
     """flax.linen.Dropout: keep with probability 1 - rate and scale by 1/keep_prob."""
 
+    mesh = None
+
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
@@ -75,7 +92,12 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        if self.mesh is None:
+            u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        else:  # the global batch's mask, this rank's rows
+            b = x.shape[0]
+            u = torch.rand((b * self.mesh.data, *x.shape[1:]), generator=self.generator, device=x.device)
+            u = u[self.mesh.local_rows(b * self.mesh.data)]
         return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 

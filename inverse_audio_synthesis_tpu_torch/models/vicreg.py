@@ -1,6 +1,13 @@
 """VICReg: a shared projector over both towers, and the variance-invariance-covariance loss.
 
-Counterpart of the JAX package's ``models/vicreg.py``.
+Counterpart of the JAX package's ``models/vicreg.py``. Under a mesh with
+``model > 1`` the projector is tensor-parallel (``parallel/mesh.py``): each hidden
+``lin{i}`` and ``bn{i}`` holds this rank's output columns, ``lin_final`` its input
+rows. The input goes in through ``copy_to``, each later hidden layer takes the
+whole previous activation through ``gather_cols``, and the row-split product
+leaves through ``reduce_from``: one ``all_reduce`` per layer, each way. The loss
+takes its statistics over the global batch (``gather_rows`` over the data
+group), as the JAX package computes them over the logical global batch.
 """
 
 from __future__ import annotations
@@ -12,6 +19,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from inverse_audio_synthesis_tpu_torch.models.layers import BatchNorm, dense
+from inverse_audio_synthesis_tpu_torch.parallel.collectives import (
+    copy_to,
+    gather_cols,
+    gather_rows,
+    reduce_from,
+)
 
 
 def parse_projector_spec(mlp: str, reprdim: int, embeddim: int) -> Tuple[int, ...]:
@@ -24,6 +37,8 @@ class Projector(nn.Module):
     """Linear + BatchNorm (eps 1e-5, flax momentum 0.9) + ReLU per hidden layer,
     bias-free final Linear."""
 
+    mesh = None
+
     def __init__(self, dims: Sequence[int], bn_dtype=torch.float32, generator=None):
         super().__init__()
         dims = tuple(dims)
@@ -35,9 +50,19 @@ class Projector(nn.Module):
         self.lin_final = dense(dims[-2], dims[-1], bias=False, generator=generator)
 
     def forward(self, x):
+        mesh = self.mesh
+        if mesh is None or not mesh.tensor_parallel:
+            for i in range(self.n_hidden):
+                x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"lin{i}")(x)))
+            return self.lin_final(x)
+        if self.n_hidden < 1:
+            raise ValueError("a tensor-parallel projector needs a hidden layer")
+        x = copy_to(x, mesh.model_group)
         for i in range(self.n_hidden):
+            if i:
+                x = gather_cols(x, mesh)
             x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"lin{i}")(x)))
-        return self.lin_final(x)
+        return reduce_from(self.lin_final(x), mesh.model_group)
 
 
 class VICRegModule(nn.Module):
@@ -76,14 +101,19 @@ def vicreg_loss(
     cov_coeff: float = 1.0,
     cov_batch_size: Optional[int] = None,
     cov_operand_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ):
     """Returns (loss, repr_loss, std_loss, cov_loss) over the batch, in float32.
 
     ``cov_batch_size`` reproduces the reference's normalization by its config
     batch size; ``cov_operand_dtype`` (e.g. bf16) rounds the covariance operands
-    to that type while the products accumulate in float32."""
+    to that type while the products accumulate in float32. Under a distributed
+    ``mesh``, x and y are this rank's rows: the loss is taken over the global
+    batch, identically on every rank."""
     with torch.autocast(device_type=x.device.type, enabled=False):
         x, y = x.float(), y.float()
+        if mesh is not None:
+            x, y = gather_rows(x, mesh), gather_rows(y, mesh)
         embeddim = x.shape[-1]
         n = x.shape[0]
         repr_loss = torch.mean((x - y) ** 2)

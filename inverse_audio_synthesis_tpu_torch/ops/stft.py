@@ -157,23 +157,18 @@ def _stft_n_frames(t: int, n_fft: int, hop: int, center: bool = True) -> int:
     return 1 + (t - n_fft) // hop
 
 
-def multi_resolution_stft_loss(
+def mrstft_stats(
     pred: torch.Tensor,
     true: torch.Tensor,
     resolutions: Sequence[Tuple[int, int, int]] = MRSTFT_RESOLUTIONS,
     method: str = "fft",
     batch_chunk: int = 256,
-    return_silence_baseline: bool = False,
-):
-    """auraloss-style MR-STFT loss: mean over resolutions (n_fft, hop, win) of
-    spectral convergence + log-magnitude L1.
-
-    Batches larger than ``batch_chunk`` pairs run in chunks, summing each loss's
-    sufficient statistics (sum (Mt-Mp)^2, sum Mt^2, sum |log Mt - log Mp|); the
-    last chunk is zero-padded, and padded rows add exactly zero.
-    ``return_silence_baseline`` also returns the loss of predicting silence,
-    computed from the true magnitudes alone (its spectral convergence is 1, its
-    log-magnitudes sit at the 1e-7 floor)."""
+) -> torch.Tensor:
+    """The MR-STFT loss's sufficient statistics [n_res, 4] of a batch of pairs:
+    per resolution sum (Mt-Mp)^2, sum Mt^2, sum |log Mt - log Mp| and sum |log Mt
+    - log 1e-7|. Sums over rows: batches add them. Batches larger than
+    ``batch_chunk`` pairs run in chunks; the last chunk is zero-padded, and padded
+    rows add exactly zero."""
     if method not in METHODS:
         raise ValueError(f"STFT method must be one of {METHODS}, got {method!r}")
     pred2 = pred.reshape(-1, pred.shape[-1]).float()
@@ -196,28 +191,56 @@ def multi_resolution_stft_loss(
         return torch.stack(rows)
 
     if b <= batch_chunk:
-        stats = chunk_stats(torch.stack([pred2, true2]))
-    else:
-        n_chunks = -(-b // batch_chunk)
-        pad = n_chunks * batch_chunk - b
-        if pad:
-            pred2 = torch.nn.functional.pad(pred2, (0, 0, 0, pad))
-            true2 = torch.nn.functional.pad(true2, (0, 0, 0, pad))
-        stats = None
-        for c in range(n_chunks):
-            rows = slice(c * batch_chunk, (c + 1) * batch_chunk)
-            s = chunk_stats(torch.stack([pred2[rows], true2[rows]]))
-            stats = s if stats is None else stats + s
+        return chunk_stats(torch.stack([pred2, true2]))
+    n_chunks = -(-b // batch_chunk)
+    pad = n_chunks * batch_chunk - b
+    if pad:
+        pred2 = torch.nn.functional.pad(pred2, (0, 0, 0, pad))
+        true2 = torch.nn.functional.pad(true2, (0, 0, 0, pad))
+    stats = None
+    for c in range(n_chunks):
+        rows = slice(c * batch_chunk, (c + 1) * batch_chunk)
+        s = chunk_stats(torch.stack([pred2[rows], true2[rows]]))
+        stats = s if stats is None else stats + s
+    return stats
 
+
+def mrstft_from_stats(
+    stats: torch.Tensor,
+    batch: int,
+    audio_len: int,
+    resolutions: Sequence[Tuple[int, int, int]] = MRSTFT_RESOLUTIONS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, silence baseline) from ``mrstft_stats`` of ``batch`` pairs of
+    ``audio_len`` samples: the mean over resolutions of spectral convergence +
+    log-magnitude L1, and the same for predicting silence (spectral convergence
+    1, log-magnitudes at the 1e-7 floor)."""
     total, silence_total = 0.0, 0.0
     for i, (n_fft, hop, _) in enumerate(resolutions):
         ssd, sst, sld, sld0 = stats[i].unbind()
-        n_elems = b * (n_fft // 2 + 1) * _stft_n_frames(pred.shape[-1], n_fft, hop)
+        n_elems = batch * (n_fft // 2 + 1) * _stft_n_frames(audio_len, n_fft, hop)
         total = total + torch.sqrt(ssd) / (torch.sqrt(sst) + 1e-8) + sld / n_elems
         silence_total = silence_total + 1.0 + sld0 / n_elems
-    loss = total / len(resolutions)
+    return total / len(resolutions), silence_total / len(resolutions)
+
+
+def multi_resolution_stft_loss(
+    pred: torch.Tensor,
+    true: torch.Tensor,
+    resolutions: Sequence[Tuple[int, int, int]] = MRSTFT_RESOLUTIONS,
+    method: str = "fft",
+    batch_chunk: int = 256,
+    return_silence_baseline: bool = False,
+):
+    """auraloss-style MR-STFT loss: mean over resolutions (n_fft, hop, win) of
+    spectral convergence + log-magnitude L1, from ``mrstft_stats`` (which see
+    for ``batch_chunk``). ``return_silence_baseline`` also returns the loss of
+    predicting silence, computed from the true magnitudes alone."""
+    stats = mrstft_stats(pred, true, resolutions, method, batch_chunk)
+    b = pred.reshape(-1, pred.shape[-1]).shape[0]
+    loss, silence = mrstft_from_stats(stats, b, pred.shape[-1], resolutions)
     if return_silence_baseline:
-        return loss, silence_total / len(resolutions)
+        return loss, silence
     return loss
 
 

@@ -6,6 +6,12 @@ Same config keys and overrides as the JAX package's ``pretrain.py``. Runs on the
 CUDA device; ``platform=cpu`` runs on the CPU. Saves checkpoints under
 ``<run_dir>/checkpoints/vicreg`` every ``vicreg.checkpoint_every_nbatches`` steps
 and at the end, and resumes from the latest one when rerun.
+
+Under ``torchrun`` each process is a rank of the ``mesh.data`` x ``mesh.model``
+mesh (``parallel/launch.py`` picks NCCL or gloo and prints it); rank 0 alone
+prints, logs and writes checkpoints:
+
+    torchrun --nproc-per-node 2 -m inverse_audio_synthesis_tpu_torch.pretrain mesh.data=2 platform=cpu ...
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from pathlib import Path
 
 import torch
 
+from inverse_audio_synthesis_tpu_torch.parallel.launch import finish, init_from_env, is_main_process
 from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
 from inverse_audio_synthesis_tpu_torch.train.pretrain import VicregPretrainTask
@@ -30,35 +37,58 @@ def restore_latest(checkpoint: CheckpointManager, state, what: str):
     start = checkpoint.latest_step()
     if not start:
         return state, 0
+    main = is_main_process()
     try:
         state = checkpoint.restore(state)
     except Exception as e:  # e.g. written by another model configuration
-        print(f"WARNING: could not restore {what} checkpoint step {start} ({e!r}); starting fresh")
+        if main:
+            print(f"WARNING: could not restore {what} checkpoint step {start} ({e!r}); starting fresh")
         return state, 0
-    print(f"resuming {what} training from checkpoint step {start}")
+    if main:
+        print(f"resuming {what} training from checkpoint step {start}")
     return state, start
+
+
+def make_logger(cfg, run_dir: Path, prefix: str):
+    """The metrics logger on rank 0; None on the other ranks."""
+    if not is_main_process():
+        return None
+    return MetricsLogger(
+        run_dir=str(run_dir),
+        config=cfg.to_dict(),
+        use_wandb=cfg.get("log") == "wand",
+        run_name=f"{prefix}-torch-" + time.strftime("%Y%m%d-%H%M%S"),
+    )
+
+
+def run_cli(app_fn, argv) -> int:
+    """Run ``app_fn(cfg)`` in the process group ``torchrun`` describes (none
+    without it), leaving the group on the way out."""
+    cfg = load_config(overrides=argv)
+    init_from_env(cfg)
+    try:
+        return app_fn(cfg)
+    finally:
+        finish()
 
 
 def app(cfg) -> int:
     split = runsetup(cfg)
     task = VicregPretrainTask(cfg)
-    name = torch.cuda.get_device_name(task.device) if task.device.type == "cuda" else "cpu"
-    print(f"device: {task.device} ({name}); render: "
-          f"{'fused' if task.fused_render else 'portable render_voice'}")
+    main = is_main_process()
     state = task.init_state()
-    n_params = sum(p.numel() for p in state.model.parameters())
-    print(f"parameters: {n_params}")
+    if main:
+        name = torch.cuda.get_device_name(task.device) if task.device.type == "cuda" else "cpu"
+        print(f"device: {task.device} ({name}); mesh data={task.mesh.data} model={task.mesh.model}; "
+              f"render: {'fused' if task.fused_render else 'portable render_voice'}")
+        print(f"parameters (this rank): {sum(p.numel() for p in state.model.parameters())}")
 
     run_dir = Path(cfg.get("run_dir", "runs"))
-    logger = MetricsLogger(
-        run_dir=str(run_dir),
-        config=cfg.to_dict(),
-        use_wandb=cfg.get("log") == "wand",
-        run_name="pretrain-torch-" + time.strftime("%Y%m%d-%H%M%S"),
-    )
+    logger = make_logger(cfg, run_dir, "pretrain")
     checkpoint = CheckpointManager(
         directory=str(run_dir / "checkpoints" / "vicreg"),
         every_n_steps=cfg.vicreg.checkpoint_every_nbatches,
+        mesh=task.mesh,
     )
     trainer = Trainer(
         task,
@@ -74,13 +104,16 @@ def app(cfg) -> int:
     try:
         trainer.fit(state, start_step=start)
     finally:
-        logger.finish()
-    print(f"metrics written to {logger.dir}; checkpoints under {checkpoint.dir}")
+        if logger is not None:
+            logger.finish()
+    if main:
+        print(f"metrics written to {logger.dir}; checkpoints under {checkpoint.dir}")
     if trainer.interrupted is not None:
-        print(f"stopped by signal {trainer.interrupted}; checkpoint saved")
+        if main:
+            print(f"stopped by signal {trainer.interrupted}; checkpoint saved")
         return 75
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(app(load_config(overrides=sys.argv[1:])))
+    sys.exit(run_cli(app, sys.argv[1:]))

@@ -13,6 +13,12 @@ Counterpart of the JAX package's ``train/checkpoint.py``, in the port's own form
   directory appears only whole (written under a temporary name, then renamed).
 - Restores, and the final and preemption saves, block. A failed background write
   is raised at the next ``wait``/``save``.
+- Under a distributed mesh (``parallel/mesh.py``) every rank calls ``save`` (the
+  model group gathers each split tensor) and rank 0 alone writes the full,
+  unsharded state, in the same format: a checkpoint does not depend on the mesh
+  that wrote it. ``latest_step`` waits, behind a barrier, for rank 0's write to
+  be committed; ``restore`` loads the full state on every rank, which keeps its
+  shard.
 """
 
 from __future__ import annotations
@@ -25,15 +31,22 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from inverse_audio_synthesis_tpu_torch.parallel.collectives import barrier
+from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh, full_state_dict, local_state_dict
+
 
 def _host_copy(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in state_dict.items()}
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, every_n_steps: int = 10000, keep: int = 3):
+    def __init__(self, directory: str, every_n_steps: int = 10000, keep: int = 3,
+                 mesh: Optional[Mesh] = None):
         self.dir = Path(directory).resolve()
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh or Mesh()
+        self.writer = self.mesh.rank == 0
+        if self.writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.every_n_steps = every_n_steps
         self.keep = keep
         self._waiter: Optional[threading.Thread] = None  # the write in flight
@@ -51,12 +64,16 @@ class CheckpointManager:
     def save(self, state, step: int, blocking: bool = True) -> Path:
         """Save ``state`` (``.step``, ``.model``, ``.optimizer``) as ``step``."""
         self.wait()  # at most one write in flight
+        path = self._step_dir(step)
+        if not self.writer:
+            if self.mesh.tensor_parallel:
+                full_state_dict(state.model, self.mesh)  # its part in the gathers
+            return path
         payload = {
             "step": int(state.step),
-            "model": _host_copy(state.model.state_dict()),
+            "model": full_state_dict(state.model, self.mesh),
             "optimizer": _host_copy(state.optimizer.state_dict()),
         }
-        path = self._step_dir(step)
         if blocking:
             self._write_and_commit(payload, path)
         else:
@@ -98,6 +115,8 @@ class CheckpointManager:
 
     def _steps_on_disk(self):
         steps = []
+        if not self.dir.is_dir():
+            return steps
         for d in self.dir.glob("step_*"):
             if d.is_dir() and d.name.split("_")[1].isdigit():  # skip writes in flight
                 steps.append(int(d.name.split("_")[1]))
@@ -110,6 +129,7 @@ class CheckpointManager:
 
     def latest_step(self) -> Optional[int]:
         self.wait()
+        barrier(self.mesh)  # rank 0's writes are committed
         last = self.dir / "last"
         if last.exists():
             name = last.read_text().strip()
@@ -120,7 +140,8 @@ class CheckpointManager:
 
     def restore(self, state):
         """Load the latest checkpoint into ``state`` in place (model and optimizer
-        tensors keep their devices) and return it. If any part fails to load,
+        tensors keep their devices; this rank's shard of each split tensor) and
+        return it. If any part fails to load,
         ``state`` is put back as it was before the error propagates, as the JAX
         package's functional restore leaves the fresh state intact."""
         step = self.latest_step()
@@ -131,7 +152,7 @@ class CheckpointManager:
         model_before = _host_copy(state.model.state_dict())
         optimizer_before = _host_copy(state.optimizer.state_dict())
         try:
-            state.model.load_state_dict(payload["model"])
+            state.model.load_state_dict(local_state_dict(payload["model"], self.mesh))
             state.optimizer.load_state_dict(payload["optimizer"])
             state.step = int(payload["step"])
         except Exception:

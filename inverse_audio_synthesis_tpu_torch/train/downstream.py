@@ -25,6 +25,17 @@ the running statistics untouched and turns dropout off.
 The test pass resynthesizes from the predicted parameters and reports the fp32
 test mel-L1, the multi-resolution STFT loss and the parameter MAE beside their
 trivial-baseline floors (constant-0.5 parameters, silence).
+
+Under a distributed mesh (``parallel/mesh.py``) each rank holds its rows of the
+global batch (``audio_to_params.batch_size``); the head's BatchNorm and Dropout
+follow ``models/layers.py``. Every loss and metric is the global batch's: each
+rank's partial sum goes through ``global_sum`` (``reduce_from``: identity
+backward, since every rank goes on with the same value) and is divided by the
+global count. ``mel_rows`` keeps its meaning of the leading rows of the global
+batch (a rank takes the overlap of its rows with them, which may be empty), and
+``mel_chunk`` counts global rows: a rank evaluates its part of each global chunk
+under checkpointing, and the term is the sum of the parts' row-weighted means
+over the mel rows, the global mean.
 """
 
 from __future__ import annotations
@@ -40,7 +51,9 @@ import torch.utils.checkpoint
 from inverse_audio_synthesis_tpu_torch.models.audio_to_params import AudioRepresentationToParams
 from inverse_audio_synthesis_tpu_torch.models.layers import BatchNorm, Dropout
 from inverse_audio_synthesis_tpu_torch.ops.stft import METHODS as STFT_METHODS
-from inverse_audio_synthesis_tpu_torch.ops.stft import MelSpectrogram, multi_resolution_stft_loss
+from inverse_audio_synthesis_tpu_torch.ops.stft import MelSpectrogram, mrstft_from_stats, mrstft_stats
+from inverse_audio_synthesis_tpu_torch.parallel.collectives import global_sum
+from inverse_audio_synthesis_tpu_torch.parallel.mesh import apply_mesh
 from inverse_audio_synthesis_tpu_torch.synth import prng
 from inverse_audio_synthesis_tpu_torch.synth.voice import (
     RENDER_BWD,
@@ -49,7 +62,7 @@ from inverse_audio_synthesis_tpu_torch.synth.voice import (
     render_voice_auto,
     sample_voice_params,
 )
-from inverse_audio_synthesis_tpu_torch.train.optim import make_optimizer
+from inverse_audio_synthesis_tpu_torch.train.optim import make_optimizer, reduce_gradients
 from inverse_audio_synthesis_tpu_torch.train.pretrain import (
     TrainState,
     VicregPretrainTask,
@@ -72,6 +85,7 @@ class AudioToParamsTask:
         a2p = cfg.audio_to_params
         self.cfg = cfg
         self.device = pretrain_task.device
+        self.mesh = pretrain_task.mesh
         frozen_bn = a2p.get("frozen_bn", "running")
         if frozen_bn not in ("running", "batch"):
             raise ValueError(f"audio_to_params.frozen_bn must be running or batch, got {frozen_bn!r}")
@@ -103,9 +117,14 @@ class AudioToParamsTask:
         self.frozen.train(frozen_bn == "batch")
 
         self.synth = synth_config_from_cfg(cfg, a2p.batch_size)
+        self.rows = self.mesh.local_rows(self.synth.batch_size)
         self._bf16 = cfg.get("precision") == "bf16"
         self._grads_bf16 = self._bf16 and bool(cfg.get("grads_bf16", False))
-        self._noise = make_noise(self.synth, self.device)
+        # this rank's rows of the noise buffer (at the downstream batch of 1024 a
+        # whole buffer is 722 MB)
+        self._noise = make_noise(
+            self.synth, self.device, self.rows.stop - self.rows.start, self.rows.start
+        )
         self.fused_render = fused_render_available(self.synth)
 
         # every mel.method is the same float32 transform here (ops/stft.py), so the
@@ -154,12 +173,14 @@ class AudioToParamsTask:
                 nparams=self.cfg.nparams, dim=self.cfg.dim, hidden_norm=a2p.hidden_norm,
                 dropout=a2p.dropout, generator=gen,
             )
+        apply_mesh(head, self.mesh)  # replicated: BatchNorm and Dropout read the mesh
         dropout_gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 2)
         for m in head.modules():
             if isinstance(m, Dropout):
                 m.generator = dropout_gen
         optimizer, self.schedule = make_optimizer(
-            a2p.optim, a2p.batch_size, list(head.parameters()), a2p.get("scheduler")
+            a2p.optim, a2p.batch_size, list(head.parameters()), a2p.get("scheduler"),
+            mesh=self.mesh,
         )
         return TrainState(0, head, optimizer)
 
@@ -183,8 +204,8 @@ class AudioToParamsTask:
         return render_voice_auto(params01.float(), self.synth, noise, bwd=self.render_bwd)
 
     def synthesize(self, batch_num: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(audio [B, 1, Ta], params01 [B, 78]) for a batch number."""
-        params01 = sample_voice_params(batch_num, self.synth, self.device)
+        """(audio [B, 1, Ta], params01 [B, 78]) of this rank's rows for a batch number."""
+        params01 = sample_voice_params(batch_num, self.synth, self.device)[self.rows]
         with torch.no_grad():
             audio = render_voice_auto(params01, self.synth, noise=self._noise)
         return audio[:, None, :], params01
@@ -195,14 +216,20 @@ class AudioToParamsTask:
         with torch.no_grad():
             audio_repr = self._audio_repr(audio)
             true_emb = self._embed_params(params01).float()
-            frozen_loss = torch.mean((true_emb - self._project_repr(audio_repr).float()) ** 2)
+            frozen_loss = self._mean((true_emb - self._project_repr(audio_repr).float()) ** 2)
         with self._autocast():
             pred_params = head(audio_repr.float())
         repr_loss = None
         if with_pred_emb:
             pred_emb = self._embed_params(pred_params).float()
-            repr_loss = torch.mean((true_emb - pred_emb) ** 2)
+            repr_loss = self._mean((true_emb - pred_emb) ** 2)
         return pred_params, repr_loss, frozen_loss
+
+    def _mean(self, x: torch.Tensor, dim=None) -> torch.Tensor:
+        """The mean over the global batch (dim 0 leading) of this rank's rows ``x``:
+        all of its elements, or the leading dim only with ``dim=0``."""
+        n = (x.numel() if dim is None else x.shape[0]) * self.mesh.data
+        return global_sum(torch.sum(x) if dim is None else torch.sum(x, dim), self.mesh) / n
 
     # -- steps -------------------------------------------------------------------
     def _mel_l1(self, pred_params, true_audio, noise) -> torch.Tensor:
@@ -211,30 +238,32 @@ class AudioToParamsTask:
         return torch.mean(torch.abs(m[0] - m[1]))
 
     def _mel_l1_component(self, pred_params, audio) -> torch.Tensor:
-        """The grad-through-synth term, on ``mel_rows`` leading rows if set, in
-        ``mel_chunk`` row chunks under activation checkpointing if set. Each chunk
-        renders with its own (position-keyed) noise rows, and chunks are equal, so
-        the mean of chunk means is the unchunked mean."""
+        """The grad-through-synth term over the global batch's leading ``mel_rows``
+        (all rows if unset), in ``mel_chunk`` row chunks of the global batch under
+        activation checkpointing if set. This rank evaluates the rows it holds,
+        cut at the chunk boundaries; each part renders with its own
+        (position-keyed) noise rows, and the row-weighted sum of the parts' means
+        over the mel rows is the unchunked mean."""
         a2p = self.cfg.audio_to_params
-        pp, ta = pred_params, audio[:, 0, :]
-        rows = a2p.get("mel_rows")
-        if rows and rows < pp.shape[0]:
-            pp, ta = pp[:rows], ta[:rows]
-        b = pp.shape[0]
-        nz = self._noise[:b]
+        b = self.synth.batch_size
+        n_mel = min(a2p.get("mel_rows") or b, b)
         chunk = a2p.get("mel_chunk")
-        if chunk and chunk < b:
-            if b % chunk:
-                raise ValueError(f"mel_chunk={chunk} must divide the mel-term batch {b}")
-            vals = [
-                torch.utils.checkpoint.checkpoint(
-                    self._mel_l1, pp[i : i + chunk], ta[i : i + chunk], nz[i : i + chunk],
-                    use_reentrant=False,
-                )
-                for i in range(0, b, chunk)
-            ]
-            return torch.mean(torch.stack(vals))
-        return self._mel_l1(pp, ta, nz)
+        if chunk and chunk < n_mel and n_mel % chunk:
+            raise ValueError(f"mel_chunk={chunk} must divide the mel-term batch {n_mel}")
+        lo, hi = self.rows.start, min(self.rows.stop, n_mel)
+        cuts = [lo] + [c for c in range(0, n_mel, chunk or n_mel) if lo < c < hi] + [hi]
+        total = pred_params.sum() * 0.0  # in the graph when this rank holds no mel rows
+        for start, stop in zip(cuts[:-1], cuts[1:]):
+            if stop <= start:
+                continue
+            i, j = start - lo, stop - lo
+            args = (pred_params[i:j], audio[i:j, 0, :], self._noise[i:j])
+            if chunk and chunk < n_mel:
+                value = torch.utils.checkpoint.checkpoint(self._mel_l1, *args, use_reentrant=False)
+            else:
+                value = self._mel_l1(*args)
+            total = total + value * (stop - start)
+        return global_sum(total, self.mesh) / n_mel
 
     def train_step(self, state: TrainState, batch_num: int) -> Tuple[TrainState, Dict[str, Any]]:
         head = state.model
@@ -245,7 +274,7 @@ class AudioToParamsTask:
         )
         components = {
             "mel_l1": lambda: self._mel_l1_component(pred_params, audio),
-            "param_mse": lambda: torch.mean((pred_params.float() - params01) ** 2),
+            "param_mse": lambda: self._mean((pred_params.float() - params01) ** 2),
             "embedding": lambda: repr_loss,
         }
         aux = {}
@@ -260,7 +289,7 @@ class AudioToParamsTask:
         else:
             loss = components[self.loss_kind]()
         params = state.optimizer.params
-        grads = torch.autograd.grad(loss, params)
+        grads = reduce_gradients(torch.autograd.grad(loss, params), self.mesh)
         if self._grads_bf16:
             grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
         state.optimizer.step(list(grads))
@@ -279,20 +308,22 @@ class AudioToParamsTask:
         beside its trivial-baseline floor. Returns (metrics, pred_audio)."""
         pred_audio = self._render(pred_params, self._noise)
         mels = self.mel(torch.stack([pred_audio, true_audio]))
-        mrstft, mrstft_silence = multi_resolution_stft_loss(
-            pred_audio, true_audio, method=self._test_spectral_method, return_silence_baseline=True
-        )
+        # the spectral sums of the global batch
+        stats = global_sum(mrstft_stats(pred_audio, true_audio, method=self._test_spectral_method),
+                           self.mesh)
+        mrstft, mrstft_silence = mrstft_from_stats(stats, self.synth.batch_size, true_audio.shape[-1])
         pred_params = pred_params.float()
+        mean = self._mean
         metrics = {
-            "audio_to_params/test/mel_l1": torch.mean(torch.abs(mels[0] - mels[1])),
+            "audio_to_params/test/mel_l1": mean(torch.abs(mels[0] - mels[1])),
             "audio_to_params/test/mrstft": mrstft,
-            "audio_to_params/test/param_mae": torch.mean(torch.abs(pred_params - params01)),
-            "audio_to_params/baseline/param_mae_const05": torch.mean(torch.abs(0.5 - params01)),
-            "audio_to_params/baseline/mel_l1_silence": torch.mean(torch.abs(mels[1])),
+            "audio_to_params/test/param_mae": mean(torch.abs(pred_params - params01)),
+            "audio_to_params/baseline/param_mae_const05": mean(torch.abs(0.5 - params01)),
+            "audio_to_params/baseline/mel_l1_silence": mean(torch.abs(mels[1])),
             "audio_to_params/baseline/mrstft_silence": mrstft_silence,
             # [nparams] vectors, written by the CLI as a CSV
-            "audio_to_params/test/param_mae_per_param": torch.mean(torch.abs(pred_params - params01), 0),
-            "audio_to_params/baseline/param_mae_per_param_const05": torch.mean(
+            "audio_to_params/test/param_mae_per_param": mean(torch.abs(pred_params - params01), 0),
+            "audio_to_params/baseline/param_mae_per_param_const05": mean(
                 torch.abs(0.5 - params01), 0
             ),
         }
@@ -300,7 +331,8 @@ class AudioToParamsTask:
 
     @torch.no_grad()
     def test_step(self, state: TrainState, batch_num: int):
-        """(metrics, true_audio [B, Ta], pred_audio [B, Ta]) for a test batch."""
+        """(metrics, true_audio [B, Ta], pred_audio [B, Ta]) for a test batch: the
+        global batch's metrics, this rank's rows of audio."""
         head = state.model
         head.eval()
         audio, params01 = self.synthesize(batch_num)

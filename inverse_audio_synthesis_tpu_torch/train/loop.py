@@ -8,6 +8,12 @@ and the metrics are fetched, and raised on, only at log cadence, so the loop
 does not wait for the device between log steps. With a ``CheckpointManager``,
 ``fit`` saves on its cadence (asynchronously), on preemption and at the end
 (``save_last``), and resumes from ``start_step``, as the JAX ``Trainer`` does.
+
+Under a distributed mesh every rank runs the loop (the steps are collectives);
+the metrics are the global batch's, equal on every rank, ``voices_per_sec``
+counts the global batch, and the CLIs give rank 0 alone a logger. A signal that
+reaches any rank stops every rank at the same step: the ranks agree on it
+before each step.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from inverse_audio_synthesis_tpu_torch.parallel.collectives import agree_max
+from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh
 from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.runsetup import BatchNumberSplit
 
@@ -104,11 +112,13 @@ class Trainer:
 
     def _fit_loop(self, state, start_step: int, n_train: int, guard):
         window_start = time.time()
+        mesh = getattr(self.task, "mesh", None) or Mesh()
         i = start_step
         while i < n_train:
-            if guard.requested is not None:
+            requested = agree_max(guard.requested, mesh)
+            if requested is not None:
                 # finish the step, then stop with a resumable checkpoint
-                self.interrupted = guard.requested
+                self.interrupted = guard.requested = int(requested)
                 if self.checkpoint is not None:
                     self.checkpoint.save(state, i)
                 self._log({"preempted_by_signal": float(guard.requested)}, step=i)
@@ -124,6 +134,7 @@ class Trainer:
                 now = time.time()
                 steps = 1 if first else self.log_every
                 metrics["steps_per_sec"] = steps / max(now - window_start, 1e-9)
+                # the synth config's batch is the global batch
                 metrics["voices_per_sec"] = metrics["steps_per_sec"] * self.task.synth.batch_size
                 window_start = now
                 bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}

@@ -15,6 +15,13 @@ Counterpart of the JAX package's ``train/optim.py``:
 - ``make_schedule``: optax's ``warmup_cosine_decay_schedule`` (linear warmup then
   cosine decay), with ``step_every_nbatches``.
 - ``make_optimizer``: LARS with the batch/256 LR scaling, or SGD.
+- Under a distributed mesh (``parallel/mesh.py``): ``reduce_gradients`` sums the
+  gradients over the data group in float32 as one flat bucket (each rank's
+  gradient is its rows' share of the global loss's, so the sum is the whole; see
+  ``parallel/collectives.py``), before any bf16 cast, so W ranks round as one
+  does. ``||w||`` and ``||g||`` of a tensor the model group splits are taken over
+  the group, and all ranks agree on the non-finite flag through one
+  ``all_reduce``: a NaN on one rank rejects the step on every rank.
 
 Plain torch, one small group of ops per parameter tensor; the norms go through
 ``torch._foreach_norm``.
@@ -23,9 +30,12 @@ Plain torch, one small group of ops per parameter tensor; the norms go through
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterable, List, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
+
+from inverse_audio_synthesis_tpu_torch.parallel.collectives import all_reduce_
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
@@ -90,6 +100,25 @@ def schedule_value(schedule: Schedule, step) -> torch.Tensor:
     return torch.tensor(float(schedule), dtype=torch.float32)
 
 
+def reduce_gradients(grads: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """The gradients summed over the data group, in float32, through one flat
+    bucket (the gradients unchanged without a process group)."""
+    if mesh is None or not mesh.distributed:
+        return list(grads)
+    bucket = torch.cat([g.reshape(-1).float() for g in grads])
+    all_reduce_(bucket, mesh.data_group)
+    return [b.view_as(g) for b, g in zip(bucket.split([g.numel() for g in grads]), grads)]
+
+
+def _agree_finite(isfinite: torch.Tensor, mesh) -> torch.Tensor:
+    """True on every rank only when it is true on all of them."""
+    if mesh is None or not mesh.distributed:
+        return isfinite
+    bad = (~isfinite).to(torch.float32).reshape(1)
+    all_reduce_(bad, op=dist.ReduceOp.MAX)
+    return bad[0] == 0
+
+
 class FusedLars:
     """flash LARS (zero momentum) over a list of parameters, with the non-finite
     guard folded into the norms it already takes."""
@@ -102,10 +131,15 @@ class FusedLars:
         trust_coefficient: float = 0.001,
         eps: float = 1e-8,
         exclude_bias_and_norm: bool = False,
+        mesh=None,
+        split: Optional[Sequence[bool]] = None,
     ):
         self.params: List[torch.Tensor] = list(params)
         if not self.params:
             raise ValueError("FusedLars needs at least one parameter")
+        self.mesh = mesh
+        # per parameter: whether the model group splits it (norms over the group)
+        self.split = tuple(split) if split is not None else (False,) * len(self.params)
         device = self.params[0].device
         self.learning_rate = learning_rate
         self.weight_decay = float(weight_decay)
@@ -125,12 +159,13 @@ class FusedLars:
         lr = schedule_value(self.learning_rate, self.count).to(self.count.device)
         wd = self.weight_decay
         gf = [g.float() for g in grads]
-        g_norm = torch._foreach_norm(gf)
+        g_norm = self._norms(gf, range(len(gf)))
         decayed = [i for i, w in enumerate(self.params) if self._decays(w)]
         w_norm = {}
         if decayed:
-            w_norm = dict(zip(decayed, torch._foreach_norm([self.params[i].float() for i in decayed])))
+            w_norm = dict(zip(decayed, self._norms([self.params[i].float() for i in decayed], decayed)))
         isfinite = torch.isfinite(torch.stack(list(g_norm) + list(w_norm.values()))).all()
+        isfinite = _agree_finite(isfinite, self.mesh)
 
         out = []
         for i, (g, w) in enumerate(zip(gf, self.params)):
@@ -149,6 +184,17 @@ class FusedLars:
         self.count += ok
         self.total_notfinite += 1 - ok
         return out
+
+    def _norms(self, tensors: List[torch.Tensor], index) -> List[torch.Tensor]:
+        """L2 norms; those of model-split tensors over the model group."""
+        norms = list(torch._foreach_norm(tensors))
+        split = [k for k, i in enumerate(index) if self.split[i]]
+        if split:
+            sq = torch.stack([norms[k] for k in split]) ** 2
+            all_reduce_(sq, self.mesh.model_group)
+            for k, n in zip(split, torch.sqrt(sq).unbind(0)):
+                norms[k] = n
+        return norms
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
@@ -169,10 +215,11 @@ class FusedLars:
 class Sgd:
     """Plain SGD (zero momentum) with the same guard and interface as FusedLars."""
 
-    def __init__(self, params, learning_rate: Schedule):
+    def __init__(self, params, learning_rate: Schedule, mesh=None):
         self.params = list(params)
         device = self.params[0].device
         self.learning_rate = learning_rate
+        self.mesh = mesh
         self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.total_notfinite = torch.zeros((), dtype=torch.int32, device=device)
 
@@ -180,7 +227,7 @@ class Sgd:
     def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         lr = schedule_value(self.learning_rate, self.count).to(self.count.device)
         gf = [g.float() for g in grads]
-        isfinite = torch.isfinite(torch.stack(torch._foreach_norm(gf))).all()
+        isfinite = _agree_finite(torch.isfinite(torch.stack(torch._foreach_norm(gf))).all(), self.mesh)
         out = [torch.where(isfinite, -lr * g, 0.0) for g in gf]
         ok = isfinite.to(torch.int32)
         self.count += ok
@@ -197,11 +244,15 @@ def make_optimizer(
     batch_size: int,
     params: Iterable[torch.Tensor],
     scheduler_cfg: Any = None,
+    mesh=None,
+    split: Optional[Sequence[bool]] = None,
 ) -> Tuple[Any, Schedule]:
     """The optimizer named by the config over ``params`` (zero momentum, as the
     pretraining task uses it). Returns (optimizer, schedule). A step with a
     non-finite gradient is rejected on the device and counted in
-    ``optimizer.total_notfinite``; the Trainer raises on it."""
+    ``optimizer.total_notfinite``; the Trainer raises on it. ``batch_size`` is
+    the global batch; ``split`` flags the parameters ``mesh``'s model group
+    splits."""
     name = optim_cfg["name"]
     args = optim_cfg.get("args", {})
     if name == "lars":
@@ -214,9 +265,11 @@ def make_optimizer(
             trust_coefficient=0.001,
             eps=1e-8,
             exclude_bias_and_norm=bool(args.get("exclude_bias_and_norm", False)),
+            mesh=mesh,
+            split=split,
         )
         return opt, schedule
     if name == "sgd":
         schedule = make_schedule(scheduler_cfg, float(args["lr"]))
-        return Sgd(params, schedule), schedule
+        return Sgd(params, schedule, mesh=mesh), schedule
     raise ValueError(f"unknown optimizer {name!r}")

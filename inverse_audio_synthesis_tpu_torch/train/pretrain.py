@@ -17,11 +17,17 @@ Numerics on CUDA: with ``precision: f32`` matmuls run in full float32 (PyTorch's
 default) and convolutions in TF32 (cuDNN's default); with bf16 both run in bf16
 under autocast.
 
-Config keys honoured: precision, grads_bf16, bn_bf16, param_embed.*, vicreg.*
-(batch size, projector spec, loss coefficients, optimizer, scheduler), image.*,
-torchsynth.*, seed. Rejected when set away from their defaults (see ROADMAP.md):
-weights_bf16, steps_per_dispatch > 1, mesh.data * mesh.model > 1,
-vicreg.vision_weights_path.
+Under a process group (``parallel/launch.py``) the task runs on the ``mesh.data
+x mesh.model`` mesh of ``parallel/mesh.py``: every rank builds the full model from
+the seed, as one rank does, then keeps its shard; it draws the global batch's
+parameters and renders its own rows, with the noise rows of their global
+positions; the loss and the metrics are those of the global batch, equal on
+every rank. ``vicreg.batch_size`` is the global batch.
+
+Config keys honoured: precision, grads_bf16, bn_bf16, mesh.*, param_embed.*,
+vicreg.* (batch size, projector spec, loss coefficients, optimizer, scheduler),
+image.*, torchsynth.*, seed. Rejected when set away from their defaults (see
+ROADMAP.md): weights_bf16, steps_per_dispatch > 1, vicreg.vision_weights_path.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from inverse_audio_synthesis_tpu_torch.models.vicreg import (
     parse_projector_spec,
     vicreg_loss,
 )
+from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh, apply_mesh, create_mesh, split_flags
 from inverse_audio_synthesis_tpu_torch.synth.config import SynthConfig
 from inverse_audio_synthesis_tpu_torch.synth.voice import (
     fused_render_available,
@@ -50,7 +57,11 @@ from inverse_audio_synthesis_tpu_torch.synth.voice import (
     sample_voice_params,
 )
 from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
-from inverse_audio_synthesis_tpu_torch.train.optim import make_optimizer, schedule_value
+from inverse_audio_synthesis_tpu_torch.train.optim import (
+    make_optimizer,
+    reduce_gradients,
+    schedule_value,
+)
 
 log = logging.getLogger(__name__)
 
@@ -76,14 +87,15 @@ def check_supported(cfg) -> None:
         raise NotImplementedError("weights_bf16=true is not supported by the port yet")
     if int(cfg.get("steps_per_dispatch", 1) or 1) > 1:
         raise NotImplementedError("steps_per_dispatch>1 is not supported by the port yet")
-    mesh = cfg.get("mesh") or {}
-    data, model = int(mesh.get("data", -1)), int(mesh.get("model", 1))
-    if max(data, 1) * max(model, 1) > 1:
-        raise NotImplementedError(
-            f"mesh data={data} model={model}: the port trains on one GPU (data=-1 means that GPU)"
-        )
     if cfg.vicreg.get("vision_weights_path"):
         raise NotImplementedError("vicreg.vision_weights_path is not supported by the port yet")
+
+
+def mesh_from_cfg(cfg) -> Mesh:
+    """The config's ``mesh.data`` x ``mesh.model`` mesh over the process group;
+    raises ValueError when its size is not the group's."""
+    mesh = cfg.get("mesh") or {}
+    return create_mesh(int(mesh.get("data", -1)), int(mesh.get("model", 1)))
 
 
 def synth_config_from_cfg(cfg, batch_size: int) -> SynthConfig:
@@ -144,12 +156,17 @@ class VicregPretrainTask:
     def __init__(self, cfg):
         check_supported(cfg)
         self.cfg = cfg
+        self.mesh = mesh_from_cfg(cfg)
         self.device = resolve_device(cfg)
         self.synth = synth_config_from_cfg(cfg, cfg.vicreg.batch_size)
+        self.rows = self.mesh.local_rows(self.synth.batch_size)
         self._bf16 = cfg.get("precision") == "bf16"
         self._grads_bf16 = self._bf16 and bool(cfg.get("grads_bf16", False))
-        # the fixed-seed noise buffer, made once per run (rows are position-keyed)
-        self._noise = make_noise(self.synth, self.device)
+        # the fixed-seed noise buffer of this rank's rows, made once per run (rows
+        # are position-keyed)
+        self._noise = make_noise(
+            self.synth, self.device, self.rows.stop - self.rows.start, self.rows.start
+        )
         self.fused_render = fused_render_available(self.synth)
         log.info(
             "render path: %s",
@@ -164,6 +181,7 @@ class VicregPretrainTask:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         with torch.device(self.device):
             model = build_vicreg_model(self.cfg, generator=gen)
+        apply_mesh(model, self.mesh)  # the full model from the seed, then this rank's shard
         dropout_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         for m in model.modules():
             if isinstance(m, Dropout):
@@ -173,6 +191,8 @@ class VicregPretrainTask:
             self.cfg.vicreg.batch_size,
             list(model.parameters()),
             self.cfg.vicreg.get("scheduler"),
+            mesh=self.mesh,
+            split=split_flags(model, self.mesh),
         )
         return TrainState(0, model, optimizer)
 
@@ -183,8 +203,9 @@ class VicregPretrainTask:
         )
 
     def synthesize(self, batch_num: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(audio [B, 1, Ta], params01 [B, 78]) for a batch number."""
-        params01 = sample_voice_params(batch_num, self.synth, self.device)
+        """(audio [B, 1, Ta], params01 [B, 78]) of this rank's rows for a batch
+        number: the global batch's parameters are drawn, its rows rendered."""
+        params01 = sample_voice_params(batch_num, self.synth, self.device)[self.rows]
         audio = render_voice_auto(params01, self.synth, noise=self._noise)
         return audio[:, None, :], params01
 
@@ -195,6 +216,7 @@ class VicregPretrainTask:
             std_coeff=self.cfg.vicreg.std_coeff,
             cov_coeff=self.cfg.vicreg.cov_coeff,
             cov_operand_dtype=torch.bfloat16 if self._bf16 else None,
+            mesh=self.mesh if self.mesh.distributed else None,
         )
 
     def train_step(self, state: TrainState, batch_num: int) -> Tuple[TrainState, Dict[str, Any]]:
@@ -205,7 +227,7 @@ class VicregPretrainTask:
             x, y = model(audio, params01)
         loss, repr_l, std_l, cov_l = self._losses(x, y)
         params = state.optimizer.params
-        grads = torch.autograd.grad(loss, params)
+        grads = reduce_gradients(torch.autograd.grad(loss, params), self.mesh)
         if self._grads_bf16:
             grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
         lr = schedule_value(self.schedule, state.step)  # lr of the update being applied
@@ -264,7 +286,7 @@ def restore_vicreg(
     state = task.init_state()
     run_dir = Path(cfg.get("run_dir", "runs"))
     directory = checkpoint_dir or cfg.get("vicreg_checkpoint") or str(run_dir / "checkpoints" / "vicreg")
-    checkpoint = CheckpointManager(directory)
+    checkpoint = CheckpointManager(directory, mesh=task.mesh)
     step = checkpoint.latest_step()
     if step is not None:
         state = checkpoint.restore(state)

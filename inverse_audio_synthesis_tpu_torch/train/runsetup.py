@@ -18,6 +18,8 @@ import hashlib
 from dataclasses import dataclass
 from typing import Iterator
 
+from inverse_audio_synthesis_tpu_torch.parallel.launch import is_main_process
+
 
 def _round_key(seed: int, rnd: int) -> int:
     h = hashlib.sha256(f"{seed}:{rnd}".encode()).digest()
@@ -90,6 +92,8 @@ class BatchNumberSplit:
 
 
 def runsetup(cfg) -> BatchNumberSplit:
-    """Build the split from the composed config (reference surface: runsetup.py:16)."""
-    print(cfg.to_yaml())
+    """Build the split from the composed config (reference surface: runsetup.py:16);
+    rank 0 alone prints the config. Every rank draws the same batch numbers."""
+    if is_main_process():
+        print(cfg.to_yaml())
     return BatchNumberSplit(cfg.num_batches, cfg.ntest_batches, cfg.seed)

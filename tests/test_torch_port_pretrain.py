@@ -302,7 +302,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert len(modules) >= 33  # the downstream, eval and serving slices' modules among them
+    assert len(modules) >= 37  # the downstream, eval, serving and parallel slices' modules among them
     assert {"inverse_audio_synthesis_tpu_torch.downstream", "inverse_audio_synthesis_tpu_torch.ops.stft",
             "inverse_audio_synthesis_tpu_torch.train.downstream",
             "inverse_audio_synthesis_tpu_torch.train.checkpoint",
@@ -310,7 +310,11 @@ def test_port_imports_no_jax():
             "inverse_audio_synthesis_tpu_torch.serve.export",
             "inverse_audio_synthesis_tpu_torch.evaluate_audio_representations",
             "inverse_audio_synthesis_tpu_torch.heareval",
-            "inverse_audio_synthesis_tpu_torch.export_model"} <= set(modules)
+            "inverse_audio_synthesis_tpu_torch.export_model",
+            "inverse_audio_synthesis_tpu_torch.parallel.mesh",
+            "inverse_audio_synthesis_tpu_torch.parallel.collectives",
+            "inverse_audio_synthesis_tpu_torch.parallel.launch",
+            "inverse_audio_synthesis_tpu_torch.parallel.jobs"} <= set(modules)
 
 
 def test_port_sources_name_no_jax():
@@ -335,6 +339,12 @@ def test_no_cuda_raises_instead_of_running_on_cpu(monkeypatch):
      "vicreg.vision_weights_path=/tmp/trunk.npz"],
 )
 def test_unsupported_keys_are_refused(override):
+    """Keys the port does not implement raise NotImplementedError; a mesh larger
+    than the process group (here none: one rank) raises ValueError naming both."""
+    if override.startswith("mesh."):
+        with pytest.raises(ValueError, match="ranks, but the process group has 1"):
+            _cpu_task(TINY + [override])
+        return
     with pytest.raises(NotImplementedError):
         _cpu_task(TINY + [override])
 

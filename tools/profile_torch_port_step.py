@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one train step of the PyTorch port goes, on one CUDA card.
 
-    python3 tools/profile_torch_port_step.py [--task vicreg|downstream|retrieval] [--steps N] [overrides ...]
+    python3 tools/profile_torch_port_step.py [--task vicreg|downstream|retrieval] [--steps N]
+        [--nccl-rank] [overrides ...]
 
 Builds the pretraining task at the default full config (vicreg=full, bf16), or
 with ``--task downstream`` the downstream task at the default downstream config
@@ -18,7 +19,10 @@ measures:
     kernels, FFTs, matrix products and convolutions, the rest);
   - the peak device memory of a step;
   - for retrieval, the device time of the evaluator's named ranges (render,
-    embed, cdist, update: ``eval/retrieval.py``).
+    embed, cdist, update: ``eval/retrieval.py``);
+  - the host (CPU) self time per step of the operators that take the most.
+``--nccl-rank`` runs the task as the one rank of an NCCL process group, so that
+the step takes the distributed code path with its collectives as real calls.
 Prints one JSON line last. Needs a CUDA device; prints "not measured" for the
 profiler numbers if the profiler records no device time.
 """
@@ -56,6 +60,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", choices=("vicreg", "downstream", "retrieval"), default="vicreg")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--nccl-rank", action="store_true")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args()
 
@@ -72,6 +77,14 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"device: {smi}", flush=True)
+    if args.nccl_rank:
+        import tempfile
+
+        import torch.distributed as dist
+
+        torch.cuda.set_device(0)
+        rendezvous = tempfile.TemporaryDirectory(prefix="profile_rendezvous_")
+        dist.init_process_group("nccl", init_method=f"file://{rendezvous.name}/file", world_size=1, rank=0)
     if args.task == "downstream":
         from inverse_audio_synthesis_tpu_torch.train.downstream import AudioToParamsTask
 
@@ -148,10 +161,11 @@ def main() -> int:
         groups[_group(name)] += us / 1e3 / n
     # which PyTorch operators launched the device time (self time: the kernels an
     # operator launched itself, not its children's)
-    ops, ranges = [], {}
+    ops, ranges, host = [], {}, []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CPU:
             continue
+        host.append((evt.self_cpu_time_total / 1e3 / n, evt.count / n, evt.key))
         if evt.key.startswith("retrieval/"):  # a named range: its kernels' total
             ranges[evt.key] = getattr(evt, "device_time_total", 0.0) / 1e3 / n
             continue
@@ -161,9 +175,11 @@ def main() -> int:
         if dev_us > 0:
             ops.append((dev_us / 1e3 / n, evt.count / n, evt.key))
     ops.sort(reverse=True)
+    host.sort(reverse=True)
     result = {
         "device": smi,
         "task": args.task,
+        "nccl_rank": args.nccl_rank,
         "batch": batch,
         "step_ms_no_sync": step_ms,
         "step_ms_profiled": prof_step_ms,
@@ -175,6 +191,7 @@ def main() -> int:
         "device_ms_per_step_by_group": dict(groups),
         "device_ms_per_step_by_op": {key: ms for ms, _, key in ops[:20]},
         "device_ms_per_step_by_range": ranges,
+        "host_ms_per_step_by_op": {key: ms for ms, _, key in host[:12]},
         "peak_memory_gb": peak_gb,
     }
     print(f"device busy {busy_ms:.2f} ms per step ({prof_step_ms:.2f} ms profiled, "
@@ -188,8 +205,13 @@ def main() -> int:
         print(f"  op {ms:8.3f} ms/step  {count:6.0f} calls  {key[:90]}")
     for key, ms in ranges.items():
         print(f"  range {key}: {ms:.3f} ms/step")
+    for ms, count, key in host[:12]:
+        print(f"  host {ms:8.3f} ms/step  {count:6.0f} calls  {key[:90]}")
     print(f"peak device memory of a step: {peak_gb:.2f} GB")
     print(json.dumps(result))
+    if args.nccl_rank:
+        dist.destroy_process_group()
+        rendezvous.cleanup()
     return 0
 
 
