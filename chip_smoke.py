@@ -27,24 +27,44 @@ Phases, each printing its own lines:
      precision bf16) through Trainer.fit, then one validation step, with the
      launch counters reset just before and read just after; the run writes a
      VICReg checkpoint to a temporary directory;
-  5. the downstream slice: that checkpoint restored into a fresh
+  5. steps_per_dispatch and the rest of the training surface, at the full
+     default config: (a) graph parity, f32 with TF32 off and dropout 0.1: 8
+     steps with steps_per_dispatch=1 against 8 with 4 and log_every 4
+     (dispatches of 1, 3 and 4 steps; the 3 and 4 replay CUDA graphs): the same
+     logged steps, losses within rtol 1e-4 (a control run whose dropout masks
+     are all others must move them by more), parameters and BatchNorm
+     statistics within phase 10's bound, the same optimizer count, no
+     rejection and as many K1 launches (a replay counts the launches its graph
+     recorded); (b) bf16, 32 steps with 1 and with 4: the median ms a step over
+     the last 16 (the first 16 capture the graphs), the host's time to return
+     from a dispatch, the host's launch calls per step (cudaLaunchKernel,
+     cudaGraphLaunch), the device's idle share and the peak memory, no
+     threshold; (c) weights_bf16,
+     4 steps: finite, no rejection, every >=2-D parameter bf16 and equal to
+     bf16(master), the masters restored bit for bit from a checkpoint; (d) the
+     committed vision-trunk fixture loaded through vicreg.vision_weights_path:
+     every trunk leaf on the card equals the file, one step finite; (e) a 2-step
+     fit inside utils/profiling.py:trace: the trace file's kernel events name
+     render_kernel; (f) detect_anomaly: two steps finite in anomaly mode (the
+     second timed), which is off again after;
+  6. the downstream slice: that checkpoint restored into a fresh
      VicregPretrainTask, then four AudioToParamsTask train steps of the default
      downstream config with audio_to_params.loss=combined (batch 1024, dim 1024,
      4 s voices, bf16) through Trainer.fit, then one test step, with the counters
      reset just before and read just after;
-  6. the retrieval eval at the full default config from that checkpoint: the
+  7. the retrieval eval at the full default config from that checkpoint: the
      planted-query gate, 3 batches of 1024 candidates (16 queries, sub-chunks of
      128, each rendered by K1) through RetrievalEvaluator.run with the counters
      reset just before and read just after (K1 >= 2 + 8 per batch), monotone and
      finite results, ms per batch and candidates/s; then 2 batches with
      save_state_every=1 and a resume to 3, bit-identical to the uninterrupted run;
-  7. HEAR: scene and 50 ms timestamp embeddings of two 2.5-window clips, their
+  8. HEAR: scene and 50 ms timestamp embeddings of two 2.5-window clips, their
      shapes, spacing, a window against the tower on its raw slice, and
      timestamp embeddings per second;
-  8. export: embed_audio, predict_params (a fresh head on the frozen towers) and
+  9. export: embed_audio, predict_params (a fresh head on the frozen towers) and
      render exported with torch.export, saved, reloaded and run on the card
      against the live functions;
-  9. the multi-rank path (inverse_audio_synthesis_tpu_torch/parallel), with the
+ 10. the multi-rank path (inverse_audio_synthesis_tpu_torch/parallel), with the
      kernels built above before any rank starts: a plain one-process run (no
      process group) of 8 bf16 pretraining steps (timing), then, with
      precision=f32 and TF32 off for matmuls and cuDNN, 2 VICReg steps and a val
@@ -67,8 +87,9 @@ Phases, each printing its own lines:
      (ranks sharing one card over gloo: not a scaling figure); and the bf16
      default config's pretraining step time on one NCCL rank beside the same
      steps without a process group;
- 10. one JSON line listing every ported kernel with its launches and times.
-The last line is {"ok": true, "device": {...}}. Any failure exits non-zero and
+ 11. one JSON line listing every ported kernel with its launches and times.
+The whole run's wall time is printed before the JSON line. The last line is
+{"ok": true, "device": {...}}. Any failure exits non-zero and
 prints no result. The script needs a CUDA device and the repository beside it.
 """
 
@@ -408,6 +429,251 @@ def phase_train(ckpt_dir: Path) -> dict:
     del task, state, trainer
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms, "probe": probe}
+
+
+DISPATCH_STEPS = 8  # (a): 8 steps with k = 1 against k = 4 and log_every 4: dispatches 1, 3, 4
+TIMING_DISPATCH_STEPS = 16
+
+
+def _pretrain_fit(overrides, steps, k, log_every, logger=None, checkpoint=None):
+    """(task, trainer, state, logger): a pretraining task of the full default
+    config with ``overrides``, its fresh state, and a Trainer of ``steps`` steps
+    with ``steps_per_dispatch`` k that logs into ``logger``."""
+    from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
+    from inverse_audio_synthesis_tpu_torch.train.pretrain import VicregPretrainTask
+    from inverse_audio_synthesis_tpu_torch.train.runsetup import BatchNumberSplit
+    from inverse_audio_synthesis_tpu_torch.utils.config import load_config
+
+    cfg = load_config(overrides=list(overrides))
+    task = VicregPretrainTask(cfg)
+    state = task.init_state()
+    logger = logger or ListLogger()
+    trainer = Trainer(task, BatchNumberSplit(cfg.num_batches, cfg.ntest_batches, cfg.seed), logger=logger,
+                      checkpoint=checkpoint, limit_train_batches=steps, log_every=log_every,
+                      steps_per_dispatch=k)
+    return task, trainer, state, logger
+
+
+def _host_state(state) -> dict:
+    return {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}
+
+
+def phase_dispatch() -> dict:
+    """steps_per_dispatch as a CUDA graph around K1, weights_bf16, the vision trunk
+    import, profile_dir and detect_anomaly, at the full default config (see the
+    module docstring, item 5)."""
+    import importlib.util
+    import statistics as st
+
+    import numpy as np
+    import torch
+
+    from inverse_audio_synthesis_tpu_torch.models.jax_weights import export_jax_variables, flatten
+    from inverse_audio_synthesis_tpu_torch.models.torch_import import load_vision_weights_file
+    from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
+    from inverse_audio_synthesis_tpu_torch.utils.profiling import nan_debugging, trace
+
+    t_phase = time.time()
+    out = {}
+    # (a) graph parity: f32, TF32 off, dropout at its default (0.1)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    try:
+        # "shifted": k = 1 with the dropout generator one draw ahead, so every mask
+        # is another: the control that the losses' tolerance would catch masks
+        # replayed out of eager order
+        for name, k in (("one", 1), ("four", 4), ("shifted", 1)):
+            task, trainer, state, logger = _pretrain_fit(
+                ["precision=f32", f"vicreg.limit_train_batches={DISPATCH_STEPS}"], DISPATCH_STEPS, k, 4)
+            if name == "shifted":
+                torch.rand(1, device="cuda", generator=state.model.backbone_param.block1.do.generator)
+            init = _host_state(state)
+            R.reset_launch_counts()
+            state = trainer.fit(state)
+            torch.cuda.synchronize()
+            runs[name] = {"launches": dict(R.launch_counts), "state": _host_state(state), "init": init,
+                          "rows": [r for r in logger.records if "vicreg/train/loss" in r],
+                          "count": int(state.optimizer.count), "step": state.step,
+                          "path": task.dispatch_path, "graphs": sorted(task._graphs)}
+            del task, trainer, state
+            _release_cuda()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    one, four = runs["one"], runs["four"]
+    shifted = max(abs(b["vicreg/train/loss"] / a["vicreg/train/loss"] - 1.0)
+                  for a, b in zip(one["rows"], runs["shifted"]["rows"]))
+    if not shifted > 1e-4:
+        raise AssertionError(f"other dropout masks moved the losses by {shifted:.2e}: the parity check "
+                             f"cannot tell the masks' order")
+    log(f"[dispatch] k=4 path: {four['path']}; graphs captured for dispatch lengths {four['graphs']}")
+    if not four["path"].startswith("cuda graph") or four["graphs"] != [3, 4]:
+        raise AssertionError("steps_per_dispatch=4 did not replay graphs of 3 and 4 steps")
+    if [r["step"] for r in one["rows"]] != [r["step"] for r in four["rows"]] or len(one["rows"]) != 3:
+        raise AssertionError(f"logged steps differ: {[r['step'] for r in one['rows']]} vs "
+                             f"{[r['step'] for r in four['rows']]}")
+    for a, b in zip(one["rows"], four["rows"]):
+        for key in ("vicreg/train/loss", "vicreg/train/repr_loss", "vicreg/train/std_loss",
+                    "vicreg/train/cov_loss", "lr"):
+            if not math.isclose(a[key], b[key], rel_tol=1e-4, abs_tol=1e-9):
+                raise AssertionError(f"step {a['step']} {key}: k=1 {a[key]} vs k=4 {b[key]}")
+        if a["notfinite_steps"] or b["notfinite_steps"]:
+            raise AssertionError("non-finite updates were rejected")
+    worst = _close_params(one["state"], four["state"], one["init"], "graph parity")
+    identical = all(torch.equal(one["state"][k], four["state"][k]) for k in one["state"])
+    if one["count"] != four["count"] or {one["step"], four["step"]} != {DISPATCH_STEPS}:
+        raise AssertionError(f"optimizer count {one['count']} vs {four['count']}, steps {one['step']} vs {four['step']}")
+    if one["launches"]["render_fwd"] != four["launches"]["render_fwd"] or one["launches"]["render_fwd"] < DISPATCH_STEPS:
+        raise AssertionError(f"K1 launches: k=1 {one['launches']} vs k=4 {four['launches']}")
+    log(f"[dispatch] (a) graph parity, f32 and TF32 off, dropout 0.1, {DISPATCH_STEPS} steps, log_every 4: "
+        f"logged steps {[r['step'] for r in four['rows']]}, losses "
+        f"{[round(r['vicreg/train/loss'], 6) for r in one['rows']]} (k=1) vs "
+        f"{[round(r['vicreg/train/loss'], 6) for r in four['rows']]} (k=4); parameters and BatchNorm "
+        f"statistics at {worst:.3f} of their bound (bit-identical: {identical}); optimizer count "
+        f"{four['count']}, no rejection; K1 launches {one['launches']['render_fwd']} (k=1) and "
+        f"{four['launches']['render_fwd']} (k=4, counted per replay); the replayed dropout masks "
+        f"follow eager order (the masks of a generator one draw ahead move the losses by up to "
+        f"{shifted:.2e})")
+    out["graph_launches"] = four["launches"]
+    del runs, one, four
+    _release_cuda()
+
+    # (b) timing at the bf16 default config
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_port_step", Path(__file__).resolve().parent / "tools" / "profile_torch_port_step.py")
+    prof_tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof_tool)
+    timing = {}
+    for k in (1, 4):
+        # 16 steps from the first (k=4: dispatches of 1, 3, 4, 4, 4; the 3 and the
+        # first 4 capture their graphs), then the 16 timed ones (k=4: four replays)
+        n = 2 * TIMING_DISPATCH_STEPS
+        task, trainer, state, _ = _pretrain_fit([], n, k, 4)
+        i, times, enqueue = 0, [], []
+        torch.cuda.reset_peak_memory_stats()
+        while i < n:
+            d = trainer._dispatch_len(i, n, 0) if k > 1 else 1
+            t0 = time.perf_counter()
+            if d > 1:
+                state, m = task.train_step_multi(state, list(range(1000 + i, 1000 + i + d)))
+            else:
+                state, m = task.train_step(state, 1000 + i)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            times.append(((time.perf_counter() - t0) * 1e3 / d, d, i >= TIMING_DISPATCH_STEPS))
+            enqueue.append((t1 - t0) * 1e3 / d)
+            i += d
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        timed = [j for j, t in enumerate(times) if t[2]]
+        step_ms = st.median(times[j][0] for j in timed)
+        enqueue_ms = st.median(enqueue[j] for j in timed)
+        first_ms = [round(t, 2) for t, _, late in times if not late]
+
+        def window():
+            nonlocal state
+            for j in range(2):
+                if k > 1:
+                    state, _ = task.train_step_multi(state, list(range(2000 + 4 * j, 2004 + 4 * j)))
+                else:
+                    for b in range(2000 + 4 * j, 2004 + 4 * j):
+                        state, _ = task.train_step(state, b)
+            torch.cuda.synchronize()
+
+        figures, _, _ = prof_tool.profile_window(window, 8, step_ms)
+        timing[k] = {"step_ms": step_ms, "enqueue_ms": enqueue_ms, "dispatches": [d for _, d, _ in times],
+                     "first_16_ms_per_step": first_ms, "peak_gb": peak_gb, **figures}
+        log(f"[dispatch] (b) bf16 default config, batch 16, steps_per_dispatch={k}: median "
+            f"{step_ms:.2f} ms a step over steps 16-31 (host {enqueue_ms:.2f} ms a step to return from the "
+            f"dispatch; dispatches {timing[k]['dispatches']}; steps 0-15, captures included, ms a step by "
+            f"dispatch {first_ms}); "
+            f"host launch calls per step {figures['host_launch_calls_per_step']}; kernels on the card per "
+            f"step {figures['kernel_launches_per_step']}; device busy {figures['device_busy_ms_per_step']} ms "
+            f"a step, idle share {figures['device_idle_share']}; peak memory {peak_gb:.2f} GB")
+        del task, trainer, state
+        _release_cuda()
+    out["timing"] = timing
+
+    # (c) weights_bf16: 4 steps, bf16 storage, masters, a checkpoint round trip
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        ckpt = CheckpointManager(tmp, every_n_steps=1000)
+        task, trainer, state, logger = _pretrain_fit(["weights_bf16=true", "vicreg.limit_train_batches=4"],
+                                                     4, 1, 1, checkpoint=ckpt)
+        state = trainer.fit(state)
+        rows = [r for r in logger.records if "vicreg/train/loss" in r]
+        opt = state.optimizer
+        narrow = [state.optimizer.params[i] for i in opt.narrow]
+        if len(rows) != 4 or not all(math.isfinite(r["vicreg/train/loss"]) and r["notfinite_steps"] == 0 for r in rows):
+            raise AssertionError(f"weights_bf16 steps: {rows}")
+        if any(p.dtype != (torch.bfloat16 if p.dim() >= 2 else torch.float32) for p in state.model.parameters()):
+            raise AssertionError("weights_bf16: >=2-D parameters must be bf16, 1-D float32")
+        if not all(torch.equal(opt.params[i], opt.master[i].to(torch.bfloat16)) for i in opt.narrow):
+            raise AssertionError("weights_bf16: a stored parameter differs from bf16(master)")
+        fresh_task, fresh_trainer, fresh, _ = _pretrain_fit(["weights_bf16=true"], 4, 1, 1)
+        fresh = CheckpointManager(tmp).restore(fresh)
+        if not all(torch.equal(a, b) for a, b in zip(opt.master, fresh.optimizer.master)):
+            raise AssertionError("weights_bf16: the checkpoint did not restore the masters exactly")
+        log(f"[dispatch] (c) weights_bf16, bf16 precision, 4 steps: losses "
+            f"{[round(r['vicreg/train/loss'], 4) for r in rows]}, no rejection; {len(narrow)} of "
+            f"{len(opt.params)} parameters stored in bf16, each equal to bf16(master); a checkpoint "
+            f"round trip restores the masters bit for bit")
+        del task, trainer, state, fresh_task, fresh_trainer, fresh, opt, narrow
+        _release_cuda()
+
+    # (d) the vision trunk from the committed fixture
+    fixture = Path(__file__).resolve().parent / "tests" / "golden" / "vision_trunk_fixture.pkl"
+    task, trainer, state, _ = _pretrain_fit([f"vicreg.vision_weights_path={fixture}"], 1, 1, 1)
+    params, stats = load_vision_weights_file(str(fixture))
+    want = flatten({"params": params, "batch_stats": stats})
+    got = flatten(export_jax_variables(state.model.backbone_audio.vision_model,
+                                       {"params": params, "batch_stats": stats}))
+    if set(got) != set(want) or not all(np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError("the vision trunk on the card differs from the fixture")
+    state, m = task.train_step(state, 0)
+    if not math.isfinite(float(m["vicreg/train/loss"])):
+        raise AssertionError("non-finite step from the fixture trunk")
+    log(f"[dispatch] (d) vicreg.vision_weights_path: all {len(want)} trunk leaves on the card equal "
+        f"the fixture; one step loss {float(m['vicreg/train/loss']):.4f}")
+    del task, trainer, state
+    _release_cuda()
+
+    # (e) profile_dir: a 2-step fit inside trace()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        task, trainer, state, _ = _pretrain_fit(["vicreg.limit_train_batches=2"], 2, 1, 1)
+        with trace(tmp, cuda=True):
+            trainer.fit(state)
+        files = list(Path(tmp).glob("trace-*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"expected one trace file, found {files}")
+        events = json.loads(files[0].read_text()).get("traceEvents", [])
+        k1 = [e for e in events if e.get("cat") == "kernel" and "render_kernel" in e.get("name", "")]
+        if not k1:
+            raise AssertionError("the trace's kernel events do not name render_kernel")
+        log(f"[dispatch] (e) profile_dir: {files[0].name} ({files[0].stat().st_size} bytes, "
+            f"{len(events)} events); {len(k1)} kernel events name render_kernel")
+        del task, trainer, state
+        _release_cuda()
+
+    # (f) detect_anomaly: two steps in anomaly mode (the second timed), off again after
+    with nan_debugging():
+        task, trainer, state, _ = _pretrain_fit(["detect_anomaly=true"], 2, 4, 1)
+        state, m0 = task.train_step_multi(state, [0])
+        t0 = time.perf_counter()
+        state, m = task.train_step_multi(state, [1])
+        torch.cuda.synchronize()
+        anomaly_ms = (time.perf_counter() - t0) * 1e3
+    losses = m0["vicreg/train/loss"].tolist() + m["vicreg/train/loss"].tolist()
+    if torch.is_anomaly_enabled() or not task.dispatch_path.startswith("eager"):
+        raise AssertionError(f"anomaly mode left on, or path {task.dispatch_path}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite step in anomaly mode")
+    log(f"[dispatch] (f) detect_anomaly: path {task.dispatch_path}; losses "
+        f"{[round(v, 4) for v in losses]}; the second step {anomaly_ms:.1f} ms "
+        f"({anomaly_ms / timing[1]['step_ms']:.2f}x (b)'s k=1 step); anomaly mode off after")
+    del task, trainer, state
+    _release_cuda()
+    log(f"[dispatch] phase time {time.time() - t_phase:.1f} s")
+    return out
 
 
 def phase_downstream(ckpt_dir: Path, probe) -> dict:
@@ -836,7 +1102,7 @@ def _release_cuda() -> None:
 
 
 def phase_parallel(worlds=PARALLEL_WORLDS) -> dict:
-    """The multi-rank path; see the module docstring, item 9. ``worlds``: (name,
+    """The multi-rank path; see the module docstring, item 10. ``worlds``: (name,
     data, model, backend) per world; rank r runs on cuda:r % device_count."""
     import os
     import statistics as st
@@ -903,6 +1169,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_run = time.time()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from inverse_audio_synthesis_tpu_torch.ops import render as R
 
@@ -934,6 +1201,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         ckpt_dir = Path(tmp) / "vicreg"
         train = phase_train(ckpt_dir)
+        dispatch = phase_dispatch()
         downstream = phase_downstream(ckpt_dir, train["probe"])
         retrieval = phase_retrieval(ckpt_dir, render[128]["ms"])
         phase_hear(ckpt_dir)
@@ -959,6 +1227,7 @@ def main() -> int:
             "share_of_bound": main["bound_ms"] / main["ms"],
             "resources": resources[name],
             "launches_by_path": {"vicreg_pretrain": train["launches"][name],
+                                 "vicreg_pretrain_graph": dispatch["graph_launches"][name],
                                  "downstream_combined": downstream["launches"][name],
                                  "retrieval": retrieval["launches"][name]},
             "launches_per_rank": {world: [{path: r[path][name] for path in r} for r in w["launches_per_rank"]]
@@ -975,8 +1244,12 @@ def main() -> int:
               "inverse_audio_synthesis_tpu/ops/pallas/render.py:339", render_bwd, 1024),
     ]
     kernels[0]["pretrain_step_ms"] = train["step_ms"]
+    kernels[0]["pretrain_step_ms_by_steps_per_dispatch"] = {
+        str(k): {key: v[key] for key in ("step_ms", "host_launch_calls_per_step", "device_idle_share", "peak_gb")}
+        for k, v in dispatch["timing"].items()}
     kernels[1]["downstream_step_ms"] = downstream["step_ms"]
     kernels[0]["retrieval"] = {k: retrieval[k] for k in ("batch_ms", "candidates_per_s", "k1_share", "noise_ms")}
+    log(f"[run] wall time {time.time() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

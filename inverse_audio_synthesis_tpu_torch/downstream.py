@@ -9,7 +9,10 @@ as the port's ``pretrain`` CLI writes it), or warns and uses random towers; trai
 the head with checkpoints under ``<run_dir>/checkpoints/audio_to_params`` and
 resumes from them when rerun; then runs the test pass, reports each metric's mean
 and std over the test batches and writes the per-parameter MAE as a CSV. Runs on
-the CUDA device; ``platform=cpu`` runs on the CPU. Under ``torchrun`` each process
+the CUDA device; ``platform=cpu`` runs on the CPU. ``steps_per_dispatch=k`` hands
+the loop's dispatches of up to k steps to the task, which runs them in order;
+``profile_dir=<dir>`` writes a ``torch.profiler`` trace of the whole fit there;
+the run config carries the git commit. Under ``torchrun`` each process
 is a rank of the ``mesh.data`` x ``mesh.model`` mesh; rank 0 alone prints, logs
 and writes files, from the global batch's metrics.
 """
@@ -23,7 +26,12 @@ import numpy as np
 import torch
 
 from inverse_audio_synthesis_tpu_torch.parallel.launch import is_main_process
-from inverse_audio_synthesis_tpu_torch.pretrain import make_logger, restore_latest, run_cli
+from inverse_audio_synthesis_tpu_torch.pretrain import (
+    fit_maybe_traced,
+    make_logger,
+    restore_latest,
+    run_cli,
+)
 from inverse_audio_synthesis_tpu_torch.synth.voice import VOICE_PARAM_SPECS
 from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.downstream import AudioToParamsTask
@@ -115,10 +123,11 @@ def app(cfg) -> int:
         checkpoint=checkpoint,
         limit_train_batches=cfg.audio_to_params.get("limit_train_batches"),
         log_every=cfg.get("log_every", 50),
+        steps_per_dispatch=cfg.get("steps_per_dispatch", 1),
     )
     state, start = restore_latest(checkpoint, state, "downstream")
     try:
-        state = trainer.fit(state, start_step=start)
+        state = fit_maybe_traced(cfg, trainer, state, start, device)
         if trainer.interrupted is not None:
             # no test pass over a half-trained head; rerunning resumes
             if main:

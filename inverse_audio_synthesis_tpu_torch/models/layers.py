@@ -17,6 +17,11 @@
   The running statistics stay identical on every rank of the group. Dropout draws
   the mask of the global batch, as one rank would, and keeps its rows: the mask
   does not depend on the mesh.
+- ``Linear``/``Conv2d`` (made by ``dense``/``conv2d``): compute in their input's
+  dtype whatever their weights' storage dtype, as flax's ``promote_dtype`` does:
+  under ``weights_bf16`` the >=2-D weights are stored in bf16, and outside
+  autocast (``precision: f32``) they are cast to the float32 input; under autocast
+  torch casts both operands to bf16 itself.
 - ``lecun_normal_``: flax's default kernel init (truncated normal, fan-in).
 """
 
@@ -26,6 +31,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from inverse_audio_synthesis_tpu_torch.parallel.collectives import sum_over
@@ -101,9 +107,26 @@ class Dropout(nn.Module):
         return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 
-def dense(in_features: int, out_features: int, bias: bool = True, generator=None) -> nn.Linear:
-    """nn.Linear with flax.linen.Dense's init (lecun normal kernel, zero bias)."""
-    lin = nn.Linear(in_features, out_features, bias=bias)
+def _as_input(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    """A weight in x's dtype outside autocast; as it is otherwise."""
+    if t is None or t.dtype == x.dtype or torch.is_autocast_enabled(x.device.type):
+        return t
+    return t.to(x.dtype)
+
+
+class Linear(nn.Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, _as_input(self.weight, x), _as_input(self.bias, x))
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, _as_input(self.weight, x), _as_input(self.bias, x))
+
+
+def dense(in_features: int, out_features: int, bias: bool = True, generator=None) -> Linear:
+    """Linear with flax.linen.Dense's init (lecun normal kernel, zero bias)."""
+    lin = Linear(in_features, out_features, bias=bias)
     lecun_normal_(lin.weight, in_features, generator)
     if bias:
         nn.init.zeros_(lin.bias)
@@ -113,9 +136,9 @@ def dense(in_features: int, out_features: int, bias: bool = True, generator=None
 def conv2d(
     in_ch: int, out_ch: int, kernel, stride: int = 1, padding=0, groups: int = 1,
     bias: bool = True, generator=None,
-) -> nn.Conv2d:
-    """nn.Conv2d with flax.linen.Conv's init."""
-    conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding, groups=groups, bias=bias)
+) -> Conv2d:
+    """Conv2d with flax.linen.Conv's init."""
+    conv = Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding, groups=groups, bias=bias)
     kh, kw = conv.kernel_size
     lecun_normal_(conv.weight, in_ch // groups * kh * kw, generator)
     if bias:

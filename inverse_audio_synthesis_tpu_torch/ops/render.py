@@ -24,6 +24,7 @@ at the top of its CUDA source; PERF.md has their times beside their bounds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import math
@@ -34,7 +35,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +71,9 @@ _LAUNCH_ARGS = {
 
 # Launches of each CUDA kernel group, counted by the wrapper where it launches.
 launch_counts = {"render_fwd": 0, "render_bwd": 0}
+# While a CUDA graph is captured (``recording_launches``), the launches that the
+# graph records, which run at each replay and not at the call.
+_recording: Optional[Dict[str, int]] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -78,6 +82,28 @@ _lib_lock = threading.Lock()
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[str, int]]:
+    """Wrap the capture of a CUDA graph: the kernels launched inside are recorded
+    into the graph and run at each replay, so they are counted into the dict
+    yielded and not into ``launch_counts``; ``count_replay`` adds them there at
+    each replay."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("a CUDA graph capture is already recording launches")
+    _recording = dict.fromkeys(launch_counts, 0)
+    try:
+        yield _recording
+    finally:
+        _recording = None
+
+
+def count_replay(recorded: Dict[str, int]) -> None:
+    """One replay of a graph whose capture recorded ``recorded`` launches."""
+    for k, n in recorded.items():
+        launch_counts[k] += n
 
 
 def fused_render_supported(batch: int, audio_len: int, control_len: int) -> bool:
@@ -225,7 +251,7 @@ def _launch(name: str, *args) -> None:
         err = getattr(lib, f"{name}_launch")(*ptrs, stream)
     if err != 0:
         raise RuntimeError(f"{name}_launch failed with CUDA error {err}")
-    launch_counts[name] += 1
+    (launch_counts if _recording is None else _recording)[name] += 1
 
 
 def _render_cuda(routed, scalars, noise, sample_rate: float, save_phase: bool):

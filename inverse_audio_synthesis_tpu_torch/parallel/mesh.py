@@ -141,8 +141,14 @@ def apply_mesh(module: nn.Module, mesh: Mesh) -> nn.Module:
 def full_state_dict(module: nn.Module, mesh: Mesh) -> Dict[str, torch.Tensor]:
     """The unsharded state dict on the host: each split tensor gathered over the
     model group (a collective: every rank of the group calls it)."""
+    return gather_state(module.state_dict(), mesh)
+
+
+def gather_state(state: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """``full_state_dict`` of a state dict: a module's, or an optimizer's, whose
+    per-parameter entries end in the parameter's name."""
     out = {}
-    for name, t in module.state_dict().items():
+    for name, t in state.items():
         dim = split_dim(name) if mesh.tensor_parallel else None
         if dim is not None:
             t = gather_shard(t, dim, mesh)

@@ -3,9 +3,14 @@
     python -m inverse_audio_synthesis_tpu_torch.pretrain [vicreg=fast] [dim=64] ... [platform=cpu]
 
 Same config keys and overrides as the JAX package's ``pretrain.py``. Runs on the
-CUDA device; ``platform=cpu`` runs on the CPU. Saves checkpoints under
-``<run_dir>/checkpoints/vicreg`` every ``vicreg.checkpoint_every_nbatches`` steps
-and at the end, and resumes from the latest one when rerun.
+CUDA device; ``platform=cpu`` runs on the CPU. Prints the parameter summary, logs
+the PQMF filter range of the vendored clip and the git commit in the run config,
+saves checkpoints under ``<run_dir>/checkpoints/vicreg`` every
+``vicreg.checkpoint_every_nbatches`` steps and at the end, and resumes from the
+latest one when rerun. ``steps_per_dispatch=k`` runs k steps per dispatch (one
+CUDA graph on the card: ``train/pretrain.py``); ``detect_anomaly=true`` turns on
+torch's anomaly mode before the task is built; ``profile_dir=<dir>`` writes a
+``torch.profiler`` trace of the whole fit there.
 
 Under ``torchrun`` each process is a rank of the ``mesh.data`` x ``mesh.model``
 mesh (``parallel/launch.py`` picks NCCL or gloo and prints it); rank 0 alone
@@ -16,6 +21,7 @@ prints, logs and writes checkpoints:
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 from pathlib import Path
@@ -29,6 +35,9 @@ from inverse_audio_synthesis_tpu_torch.train.pretrain import VicregPretrainTask
 from inverse_audio_synthesis_tpu_torch.train.runsetup import runsetup
 from inverse_audio_synthesis_tpu_torch.utils.config import load_config
 from inverse_audio_synthesis_tpu_torch.utils.logging import MetricsLogger
+from inverse_audio_synthesis_tpu_torch.utils.profiling import nan_debugging, trace
+from inverse_audio_synthesis_tpu_torch.utils.summary import clip_filter_range_stats, summarize_params
+from inverse_audio_synthesis_tpu_torch.utils.utils import git_sha
 
 
 def restore_latest(checkpoint: CheckpointManager, state, what: str):
@@ -55,7 +64,7 @@ def make_logger(cfg, run_dir: Path, prefix: str):
         return None
     return MetricsLogger(
         run_dir=str(run_dir),
-        config=cfg.to_dict(),
+        config={"git_sha": git_sha(), **cfg.to_dict()},
         use_wandb=cfg.get("log") == "wand",
         run_name=f"{prefix}-torch-" + time.strftime("%Y%m%d-%H%M%S"),
     )
@@ -72,7 +81,25 @@ def run_cli(app_fn, argv) -> int:
         finish()
 
 
+def fit_maybe_traced(cfg, trainer: Trainer, state, start: int, device):
+    """``trainer.fit``, inside a profiler trace written to ``profile_dir`` when
+    that is set."""
+    if not cfg.get("profile_dir"):
+        return trainer.fit(state, start_step=start)
+    with trace(cfg.profile_dir, cuda=device.type == "cuda"):
+        state = trainer.fit(state, start_step=start)
+    if is_main_process():
+        print(f"profiler trace written to {cfg.profile_dir}")
+    return state
+
+
 def app(cfg) -> int:
+    # anomaly mode from before the task is built to the end of the run
+    with nan_debugging() if cfg.get("detect_anomaly") else contextlib.nullcontext():
+        return _app(cfg)
+
+
+def _app(cfg) -> int:
     split = runsetup(cfg)
     task = VicregPretrainTask(cfg)
     main = is_main_process()
@@ -81,7 +108,7 @@ def app(cfg) -> int:
         name = torch.cuda.get_device_name(task.device) if task.device.type == "cuda" else "cpu"
         print(f"device: {task.device} ({name}); mesh data={task.mesh.data} model={task.mesh.model}; "
               f"render: {'fused' if task.fused_render else 'portable render_voice'}")
-        print(f"parameters (this rank): {sum(p.numel() for p in state.model.parameters())}")
+        print(summarize_params(state.model, max_depth=2, mesh=task.mesh))
 
     run_dir = Path(cfg.get("run_dir", "runs"))
     logger = make_logger(cfg, run_dir, "pretrain")
@@ -99,10 +126,13 @@ def app(cfg) -> int:
         limit_val_batches=cfg.vicreg.get("limit_val_batches"),
         val_check_interval=cfg.vicreg.get("val_check_interval"),
         log_every=cfg.get("log_every", 50),
+        steps_per_dispatch=cfg.get("steps_per_dispatch", 1),
     )
+    if logger is not None:
+        logger.log(clip_filter_range_stats())
     state, start = restore_latest(checkpoint, state, "vicreg")
     try:
-        trainer.fit(state, start_step=start)
+        fit_maybe_traced(cfg, trainer, state, start, task.device)
     finally:
         if logger is not None:
             logger.finish()

@@ -276,11 +276,23 @@ def render_voice_auto(
     return render_voice(params01, config, noise)
 
 
-def sample_voice_params(batch_num: int, config: SynthConfig, device=None) -> torch.Tensor:
+def sample_voice_params(batch_num, config: SynthConfig, device=None,
+                        seed_key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Deterministic per-batch-number parameter draw: [B, 78] uniform in [0, 1),
-    bit-identical to the JAX package's draw for the same batch number."""
+    bit-identical to the JAX package's draw for the same batch number.
+
+    ``batch_num`` is an int, or an int64 0-dim tensor: then the key is folded in
+    and hashed as tensor data on its device (``seed_key`` is ``prng_key(seed)``
+    there, made beforehand), and nothing goes through the host, so a CUDA graph
+    can read the batch number from a buffer. Both draw the same bits."""
+    shape = (config.batch_size, len(VOICE_PARAM_SPECS))
+    if isinstance(batch_num, torch.Tensor):
+        if seed_key is None:
+            seed_key = prng.prng_key(config.seed).to(batch_num.device)
+        key = prng.fold_in(seed_key, batch_num)[None]  # a batch of one key: hashed as tensor data
+        return prng.uniform(key, shape, device=batch_num.device)[0]
     key = prng.fold_in(prng.prng_key(config.seed), int(batch_num))
-    return prng.uniform(key, (config.batch_size, len(VOICE_PARAM_SPECS)), device=device)
+    return prng.uniform(key, shape, device=device)
 
 
 def is_train_split(batch_num: int, config: SynthConfig, device=None) -> torch.Tensor:

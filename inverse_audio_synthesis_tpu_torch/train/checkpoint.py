@@ -14,7 +14,8 @@ Counterpart of the JAX package's ``train/checkpoint.py``, in the port's own form
 - Restores, and the final and preemption saves, block. A failed background write
   is raised at the next ``wait``/``save``.
 - Under a distributed mesh (``parallel/mesh.py``) every rank calls ``save`` (the
-  model group gathers each split tensor) and rank 0 alone writes the full,
+  model group gathers each split tensor, of the model and of the optimizer's
+  per-parameter state) and rank 0 alone writes the full,
   unsharded state, in the same format: a checkpoint does not depend on the mesh
   that wrote it. ``latest_step`` waits, behind a barrier, for rank 0's write to
   be committed; ``restore`` loads the full state on every rank, which keeps its
@@ -32,7 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from inverse_audio_synthesis_tpu_torch.parallel.collectives import barrier
-from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh, full_state_dict, local_state_dict
+from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh, full_state_dict, gather_state, local_state_dict
 
 
 def _host_copy(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -66,13 +67,14 @@ class CheckpointManager:
         self.wait()  # at most one write in flight
         path = self._step_dir(step)
         if not self.writer:
-            if self.mesh.tensor_parallel:
-                full_state_dict(state.model, self.mesh)  # its part in the gathers
+            if self.mesh.tensor_parallel:  # its part in the gathers
+                full_state_dict(state.model, self.mesh)
+                gather_state(state.optimizer.state_dict(), self.mesh)
             return path
         payload = {
             "step": int(state.step),
             "model": full_state_dict(state.model, self.mesh),
-            "optimizer": _host_copy(state.optimizer.state_dict()),
+            "optimizer": gather_state(state.optimizer.state_dict(), self.mesh),
         }
         if blocking:
             self._write_and_commit(payload, path)
@@ -153,7 +155,7 @@ class CheckpointManager:
         optimizer_before = _host_copy(state.optimizer.state_dict())
         try:
             state.model.load_state_dict(local_state_dict(payload["model"], self.mesh))
-            state.optimizer.load_state_dict(payload["optimizer"])
+            state.optimizer.load_state_dict(local_state_dict(payload["optimizer"], self.mesh))
             state.step = int(payload["step"])
         except Exception:
             state.model.load_state_dict(model_before)

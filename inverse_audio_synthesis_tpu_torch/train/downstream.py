@@ -66,7 +66,6 @@ from inverse_audio_synthesis_tpu_torch.train.optim import make_optimizer, reduce
 from inverse_audio_synthesis_tpu_torch.train.pretrain import (
     TrainState,
     VicregPretrainTask,
-    check_supported,
     synth_config_from_cfg,
 )
 
@@ -81,7 +80,6 @@ class AudioToParamsTask:
     train/test steps."""
 
     def __init__(self, cfg, pretrain_task: VicregPretrainTask, pretrain_state: TrainState):
-        check_supported(cfg)
         a2p = cfg.audio_to_params
         self.cfg = cfg
         self.device = pretrain_task.device
@@ -301,6 +299,17 @@ class AudioToParamsTask:
         for name, value in aux.items():
             metrics[f"audio_to_params/train/{name}"] = value.detach()
         return state, metrics
+
+    def train_step_multi(self, state: TrainState, batch_nums) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """len(batch_nums) train steps in order through ``train_step`` -> (state,
+        metrics stacked [k]). No CUDA graph here: the batch-1024 step keeps the
+        card busy (PERF.md), and its cuFFT plans and ``mel_chunk`` recomputation
+        would have to be made capture-safe for nothing."""
+        rows = []
+        for n in batch_nums:
+            state, m = self.train_step(state, n)
+            rows.append(m)
+        return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
 
     @torch.no_grad()
     def test_metrics(self, true_audio, params01, pred_params) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:

@@ -1,8 +1,10 @@
-"""LARS (lightning-flash's rule, zero momentum), its LR schedule, and the non-finite guard.
+"""LARS (lightning-flash's rule, and optax's with momentum), SGD, the LR schedule,
+the non-finite guard, and float32 master weights.
 
 Counterpart of the JAX package's ``train/optim.py``:
 
-- ``FusedLars`` is ``fused_lars`` with its non-finite guard. flash's formula:
+- ``FusedLars`` is ``fused_lars`` with its non-finite guard (zero momentum, the
+  configuration the reference and the CLIs use). flash's formula:
 
       if wd == 0:                  update = -lr * g                 (plain SGD)
       elif ||w|| > 0 and ||g|| > 0: local_lr = tc*||w|| / (||g|| + wd*||w|| + eps)
@@ -12,6 +14,16 @@ Counterpart of the JAX package's ``train/optim.py``:
   A step whose gradient (or weight) norms are not finite applies no update, does
   not advance the schedule count, and adds one to ``total_notfinite`` (the JAX
   package's guard, always on here as in its ``make_optimizer``). Everything stays on the device: no step waits for the host.
+- ``MomentumLars`` is ``optax.lars`` with momentum > 0 inside
+  ``reject_nonfinite_updates``: decayed weights (masked), the masked trust ratio
+  tc*||w|| / (||g + wd*w|| + eps) (1 where either norm is 0), -lr, then
+  ``trace(momentum)``. ``Sgd`` is ``optax.sgd``: ``trace(momentum)``, then -lr. A
+  rejected step leaves the trace and the count as they were. Momentum is an
+  argument of ``make_optimizer`` only, as in JAX: no config key sets it.
+- ``Fp32Master`` is ``with_fp32_master`` (``weights_bf16``): the parameters
+  stored in bf16 get float32 master copies; the inner optimizer (its norms, the
+  guard, the schedule) runs on the masters, and each step writes bf16(master) into
+  the stored parameters. float32 parameters are their own masters.
 - ``make_schedule``: optax's ``warmup_cosine_decay_schedule`` (linear warmup then
   cosine decay), with ``step_every_nbatches``.
 - ``make_optimizer``: LARS with the batch/256 LR scaling, or SGD.
@@ -22,6 +34,11 @@ Counterpart of the JAX package's ``train/optim.py``:
   does. ``||w||`` and ``||g||`` of a tensor the model group splits are taken over
   the group, and all ranks agree on the non-finite flag through one
   ``all_reduce``: a NaN on one rank rejects the step on every rank.
+
+Every tensor of an optimizer is updated in place (a CUDA graph of the train step
+holds their addresses). ``state_dict`` names per-parameter state by the
+parameter's name (``master.<name>``, ``trace.<name>``), so a checkpoint under
+tensor parallelism gathers and splits it as it does the model's.
 
 Plain torch, one small group of ops per parameter tensor; the norms go through
 ``torch._foreach_norm``.
@@ -95,9 +112,11 @@ def make_schedule(scheduler_cfg: Any, peak_lr: float) -> Schedule:
 
 
 def schedule_value(schedule: Schedule, step) -> torch.Tensor:
+    """The learning rate at ``step`` (an int, or a tensor: then on its device)."""
     if callable(schedule):
         return schedule(step).to(torch.float32)
-    return torch.tensor(float(schedule), dtype=torch.float32)
+    device = step.device if isinstance(step, torch.Tensor) else None
+    return torch.full((), float(schedule), dtype=torch.float32, device=device)
 
 
 def reduce_gradients(grads: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
@@ -119,7 +138,59 @@ def _agree_finite(isfinite: torch.Tensor, mesh) -> torch.Tensor:
     return bad[0] == 0
 
 
-class FusedLars:
+
+
+class _Guarded:
+    """What the optimizers share: the parameters and their names, the schedule
+    count and the non-finite counter on the device, per-parameter buffers (the
+    attributes named in ``buffers``, one tensor per parameter), the in-place step
+    and the state dict."""
+
+    buffers: Tuple[str, ...] = ()
+
+    def __init__(self, params: Iterable[torch.Tensor], learning_rate: Schedule, mesh=None,
+                 names: Optional[Sequence[str]] = None):
+        self.params: List[torch.Tensor] = list(params)
+        if not self.params:
+            raise ValueError(f"{type(self).__name__} needs at least one parameter")
+        self.names = [str(i) for i in range(len(self.params))] if names is None else list(names)
+        if len(self.names) != len(self.params):
+            raise ValueError(f"{len(self.names)} names for {len(self.params)} parameters")
+        self.learning_rate = learning_rate
+        self.mesh = mesh
+        device = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.total_notfinite = torch.zeros((), dtype=torch.int32, device=device)
+
+    def _advance(self, isfinite: torch.Tensor) -> None:
+        """Count the step if it was finite, the rejection if it was not."""
+        ok = isfinite.to(torch.int32)
+        self.count += ok
+        self.total_notfinite += 1 - ok
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]) -> None:
+        """Apply one update for ``grads`` (one per parameter) in place: the
+        subclass's ``updates``, which also advance the count and counter."""
+        for p, u in zip(self.params, self.updates(grads)):
+            p.add_(u.to(p.dtype))
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The count, the counter and each buffer as ``<buffer>.<parameter name>``."""
+        out = {"count": self.count, "total_notfinite": self.total_notfinite}
+        for kind in self.buffers:
+            out.update({f"{kind}.{n}": t for n, t in zip(self.names, getattr(self, kind))})
+        return out
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        self.count.copy_(state["count"])
+        self.total_notfinite.copy_(state["total_notfinite"])
+        for kind in self.buffers:
+            for n, t in zip(self.names, getattr(self, kind)):
+                t.copy_(state[f"{kind}.{n}"])
+
+
+class FusedLars(_Guarded):
     """flash LARS (zero momentum) over a list of parameters, with the non-finite
     guard folded into the norms it already takes."""
 
@@ -133,21 +204,15 @@ class FusedLars:
         exclude_bias_and_norm: bool = False,
         mesh=None,
         split: Optional[Sequence[bool]] = None,
+        names: Optional[Sequence[str]] = None,
     ):
-        self.params: List[torch.Tensor] = list(params)
-        if not self.params:
-            raise ValueError("FusedLars needs at least one parameter")
-        self.mesh = mesh
+        super().__init__(params, learning_rate, mesh, names)
         # per parameter: whether the model group splits it (norms over the group)
         self.split = tuple(split) if split is not None else (False,) * len(self.params)
-        device = self.params[0].device
-        self.learning_rate = learning_rate
         self.weight_decay = float(weight_decay)
         self.trust_coefficient = trust_coefficient
         self.eps = eps
         self.exclude_bias_and_norm = exclude_bias_and_norm
-        self.count = torch.zeros((), dtype=torch.int32, device=device)
-        self.total_notfinite = torch.zeros((), dtype=torch.int32, device=device)
 
     def _decays(self, w: torch.Tensor) -> bool:
         return self.weight_decay != 0.0 and not (self.exclude_bias_and_norm and w.dim() == 1)
@@ -156,7 +221,7 @@ class FusedLars:
     def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """The updates for ``grads`` (one per parameter), and the count/guard state
         advanced; the caller adds them to the parameters."""
-        lr = schedule_value(self.learning_rate, self.count).to(self.count.device)
+        lr = schedule_value(self.learning_rate, self.count)
         wd = self.weight_decay
         gf = [g.float() for g in grads]
         g_norm = self._norms(gf, range(len(gf)))
@@ -180,9 +245,7 @@ class FusedLars:
                 # cond false: 1 * (g + 0 * w) == g exactly, flash's undecayed step
                 upd = -lr * (local_lr * (g + torch.where(cond, wd, 0.0) * w.float()))
             out.append(torch.where(isfinite, upd, 0.0))
-        ok = isfinite.to(torch.int32)
-        self.count += ok
-        self.total_notfinite += 1 - ok
+        self._advance(isfinite)
         return out
 
     def _norms(self, tensors: List[torch.Tensor], index) -> List[torch.Tensor]:
@@ -196,47 +259,117 @@ class FusedLars:
                 norms[k] = n
         return norms
 
-    @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> None:
-        """Apply one update for ``grads`` (one per parameter) in place."""
-        for p, u in zip(self.params, self.updates(grads)):
-            p.add_(u.to(p.dtype))
 
-    def state_dict(self) -> Dict[str, torch.Tensor]:
-        """The schedule count and the non-finite counter (zero momentum: no other
-        state)."""
-        return {"count": self.count, "total_notfinite": self.total_notfinite}
+class MomentumLars(FusedLars):
+    """``optax.lars`` with ``momentum`` > 0 inside the non-finite guard: with the
+    mask (every parameter, or those of >= 2 dims with ``exclude_bias_and_norm``),
+    u = g + wd*w and u *= tc*||w|| / (||u|| + eps) (1 where either norm is 0);
+    then u *= -lr and trace = u + momentum * trace is the update. A rejected step
+    applies nothing and leaves the trace and the count as they were."""
 
-    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
-        self.count.copy_(state["count"])
-        self.total_notfinite.copy_(state["total_notfinite"])
+    buffers = ("trace",)
 
-
-class Sgd:
-    """Plain SGD (zero momentum) with the same guard and interface as FusedLars."""
-
-    def __init__(self, params, learning_rate: Schedule, mesh=None):
-        self.params = list(params)
-        device = self.params[0].device
-        self.learning_rate = learning_rate
-        self.mesh = mesh
-        self.count = torch.zeros((), dtype=torch.int32, device=device)
-        self.total_notfinite = torch.zeros((), dtype=torch.int32, device=device)
+    def __init__(self, params: Iterable[torch.Tensor], learning_rate: Schedule, momentum: float,
+                 **kwargs):
+        super().__init__(params, learning_rate, **kwargs)
+        self.momentum = float(momentum)
+        self.trace = [torch.zeros_like(p) for p in self.params]
 
     @torch.no_grad()
     def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        lr = schedule_value(self.learning_rate, self.count).to(self.count.device)
+        lr = schedule_value(self.learning_rate, self.count)
         gf = [g.float() for g in grads]
-        isfinite = _agree_finite(torch.isfinite(torch.stack(torch._foreach_norm(gf))).all(), self.mesh)
-        out = [torch.where(isfinite, -lr * g, 0.0) for g in gf]
-        ok = isfinite.to(torch.int32)
-        self.count += ok
-        self.total_notfinite += 1 - ok
+        isfinite = torch.isfinite(torch.stack(self._norms(gf, range(len(gf))))).all()
+        isfinite = _agree_finite(isfinite, self.mesh)
+        masked = [i for i, w in enumerate(self.params)
+                  if not (self.exclude_bias_and_norm and w.dim() == 1)]
+        u = [torch.where(isfinite, g, 0.0) for g in gf]  # the guard gates the gradients first
+        for i in masked:
+            u[i] = u[i] + self.weight_decay * self.params[i].float()
+        if masked:
+            w_norm = self._norms([self.params[i].float() for i in masked], masked)
+            u_norm = self._norms([u[i] for i in masked], masked)
+            for i, wn, un in zip(masked, w_norm, u_norm):
+                ratio = self.trust_coefficient * wn / (un + self.eps)
+                u[i] = u[i] * torch.where((wn == 0.0) | (un == 0.0), 1.0, ratio)
+        out = []
+        for upd, t in zip(u, self.trace):
+            new = -lr * upd + self.momentum * t
+            t.copy_(torch.where(isfinite, new, t))
+            out.append(torch.where(isfinite, new, 0.0))
+        self._advance(isfinite)
         return out
 
-    step = FusedLars.step
-    state_dict = FusedLars.state_dict
-    load_state_dict = FusedLars.load_state_dict
+
+class Sgd(_Guarded):
+    """``optax.sgd`` with the same guard and interface as FusedLars: trace =
+    g + momentum * trace, update = -lr * trace (-lr * g at zero momentum, with no
+    trace kept)."""
+
+    def __init__(self, params, learning_rate: Schedule, mesh=None, momentum: float = 0.0,
+                 names: Optional[Sequence[str]] = None):
+        super().__init__(params, learning_rate, mesh, names)
+        self.momentum = float(momentum)
+        self.trace = [torch.zeros_like(p) for p in self.params] if self.momentum else []
+        self.buffers = ("trace",) if self.momentum else ()
+
+    @torch.no_grad()
+    def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        lr = schedule_value(self.learning_rate, self.count)
+        gf = [g.float() for g in grads]
+        isfinite = _agree_finite(torch.isfinite(torch.stack(torch._foreach_norm(gf))).all(), self.mesh)
+        if not self.momentum:
+            out = [torch.where(isfinite, -lr * g, 0.0) for g in gf]
+        else:
+            out = []
+            for g, t in zip(gf, self.trace):
+                new = torch.where(isfinite, g, 0.0) + self.momentum * t
+                t.copy_(torch.where(isfinite, new, t))
+                out.append(torch.where(isfinite, -lr * new, 0.0))
+        self._advance(isfinite)
+        return out
+
+
+class Fp32Master:
+    """``with_fp32_master``: float32 masters of the parameters stored in a
+    narrower type (bf16 under ``weights_bf16``), the inner optimizer built over
+    the masters by ``make_inner(masters)``, and each step writing the rounded
+    masters into the stored parameters in place. A float32 parameter is its own
+    master. The state dict adds ``master.<name>`` of each narrower parameter, so a
+    checkpoint resumes exactly."""
+
+    def __init__(self, params: Iterable[torch.Tensor], make_inner: Callable[[List[torch.Tensor]], Any],
+                 names: Optional[Sequence[str]] = None):
+        self.params: List[torch.Tensor] = list(params)
+        self.names = [str(i) for i in range(len(self.params))] if names is None else list(names)
+        self.narrow = [i for i, p in enumerate(self.params) if p.dtype != torch.float32]
+        self.master = [p.detach().float().clone() if i in self.narrow else p
+                       for i, p in enumerate(self.params)]
+        self.inner = make_inner(self.master)
+
+    @property
+    def count(self) -> torch.Tensor:
+        return self.inner.count
+
+    @property
+    def total_notfinite(self) -> torch.Tensor:
+        return self.inner.total_notfinite
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]) -> None:
+        self.inner.step(grads)
+        for i in self.narrow:
+            self.params[i].copy_(self.master[i])
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        out = dict(self.inner.state_dict())
+        out.update({f"master.{self.names[i]}": self.master[i] for i in self.narrow})
+        return out
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        self.inner.load_state_dict(state)
+        for i in self.narrow:
+            self.master[i].copy_(state[f"master.{self.names[i]}"])
 
 
 def make_optimizer(
@@ -246,30 +379,33 @@ def make_optimizer(
     scheduler_cfg: Any = None,
     mesh=None,
     split: Optional[Sequence[bool]] = None,
+    momentum: float = 0.0,
+    names: Optional[Sequence[str]] = None,
 ) -> Tuple[Any, Schedule]:
-    """The optimizer named by the config over ``params`` (zero momentum, as the
-    pretraining task uses it). Returns (optimizer, schedule). A step with a
-    non-finite gradient is rejected on the device and counted in
-    ``optimizer.total_notfinite``; the Trainer raises on it. ``batch_size`` is
-    the global batch; ``split`` flags the parameters ``mesh``'s model group
-    splits."""
+    """The optimizer named by the config over ``params``. Returns (optimizer,
+    schedule). A step with a non-finite gradient is rejected on the device and
+    counted in ``optimizer.total_notfinite``; the Trainer raises on it.
+    ``batch_size`` is the global batch; ``split`` flags the parameters ``mesh``'s
+    model group splits; ``names`` (the parameters' names) key per-parameter
+    state in the state dict."""
     name = optim_cfg["name"]
     args = optim_cfg.get("args", {})
     if name == "lars":
         peak_lr = batch_size / 256.0 * float(args["base_lr"])
         schedule = make_schedule(scheduler_cfg, peak_lr)
-        opt = FusedLars(
-            params,
-            learning_rate=schedule,
+        kwargs = dict(
             weight_decay=float(args.get("weight_decay", 0.0)),
             trust_coefficient=0.001,
             eps=1e-8,
             exclude_bias_and_norm=bool(args.get("exclude_bias_and_norm", False)),
             mesh=mesh,
             split=split,
+            names=names,
         )
-        return opt, schedule
+        if momentum:
+            return MomentumLars(params, schedule, momentum, **kwargs), schedule
+        return FusedLars(params, schedule, **kwargs), schedule
     if name == "sgd":
         schedule = make_schedule(scheduler_cfg, float(args["lr"]))
-        return Sgd(params, schedule, mesh=mesh), schedule
+        return Sgd(params, schedule, mesh=mesh, momentum=momentum, names=names), schedule
     raise ValueError(f"unknown optimizer {name!r}")

@@ -17,6 +17,29 @@ Numerics on CUDA: with ``precision: f32`` matmuls run in full float32 (PyTorch's
 default) and convolutions in TF32 (cuDNN's default); with bf16 both run in bf16
 under autocast.
 
+``weights_bf16``: the >=2-D parameters are stored in bf16 (1-D ones stay float32)
+and the optimizer keeps float32 masters (``train/optim.py:Fp32Master``), whatever
+the precision, as in JAX; the layers compute in the precision's dtype
+(``models/layers.py``). ``vicreg.vision_weights_path`` loads a torchvision
+MobileNetV3-Small trunk (``models/torch_import.py``) into the audio tower at
+``init_state``, before the mesh keeps this rank's shard.
+
+``train_step_multi`` runs k steps for one dispatch of the loop
+(``steps_per_dispatch``). On a CUDA run with no process group and anomaly mode
+off the k steps are one CUDA graph, captured once per dispatch length and
+replayed. The graph reads the k batch numbers and step numbers from a device
+buffer the host fills before each replay (the batch key is folded in on the
+device, ``synth/voice.py:sample_voice_params``); the dropout generator is
+registered with the graph, so each replay draws the masks eager steps would;
+autocast does not cache casts under capture; every tensor the graph touches
+(parameters, BatchNorm statistics, the optimizer's count, counter and masters,
+the noise) keeps its address, since everything updates them in place; the
+render library is loaded before the capture (by the loop's first step, always a
+single eager one). A capture or replay that fails raises: there is no fallback.
+On the CPU, under a process group (gloo cannot be captured) or in anomaly mode
+the k steps run in order through ``train_step``. The path is chosen when the
+task is built and logged at the first dispatch.
+
 Under a process group (``parallel/launch.py``) the task runs on the ``mesh.data
 x mesh.model`` mesh of ``parallel/mesh.py``: every rank builds the full model from
 the seed, as one rank does, then keeps its shard; it draws the global batch's
@@ -24,10 +47,11 @@ parameters and renders its own rows, with the noise rows of their global
 positions; the loss and the metrics are those of the global batch, equal on
 every rank. ``vicreg.batch_size`` is the global batch.
 
-Config keys honoured: precision, grads_bf16, bn_bf16, mesh.*, param_embed.*,
-vicreg.* (batch size, projector spec, loss coefficients, optimizer, scheduler),
-image.*, torchsynth.*, seed. Rejected when set away from their defaults (see
-ROADMAP.md): weights_bf16, steps_per_dispatch > 1, vicreg.vision_weights_path.
+Config keys honoured: precision, grads_bf16, bn_bf16, weights_bf16,
+detect_anomaly (the graph path's choice; the CLI turns anomaly mode on),
+mesh.*, param_embed.*, vicreg.* (batch size, projector spec, loss coefficients,
+optimizer, scheduler, vision_weights_path, pretrained_vision_model), image.*,
+torchsynth.*, seed. ``steps_per_dispatch`` is the loop's (``train/loop.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +65,10 @@ import torch
 from torch import nn
 
 from inverse_audio_synthesis_tpu_torch.models.audioembed import AudioEmbedding
+from inverse_audio_synthesis_tpu_torch.models.torch_import import (
+    load_into_audio_embedding,
+    load_vision_weights_file,
+)
 from inverse_audio_synthesis_tpu_torch.models.layers import Dropout
 from inverse_audio_synthesis_tpu_torch.models.paramembed import ParamEmbed
 from inverse_audio_synthesis_tpu_torch.models.vicreg import (
@@ -49,6 +77,8 @@ from inverse_audio_synthesis_tpu_torch.models.vicreg import (
     vicreg_loss,
 )
 from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh, apply_mesh, create_mesh, split_flags
+from inverse_audio_synthesis_tpu_torch.ops import render as R
+from inverse_audio_synthesis_tpu_torch.synth import prng
 from inverse_audio_synthesis_tpu_torch.synth.config import SynthConfig
 from inverse_audio_synthesis_tpu_torch.synth.voice import (
     fused_render_available,
@@ -58,12 +88,14 @@ from inverse_audio_synthesis_tpu_torch.synth.voice import (
 )
 from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.optim import (
+    Fp32Master,
     make_optimizer,
     reduce_gradients,
     schedule_value,
 )
 
 log = logging.getLogger(__name__)
+_WARNED_RANDOM_INIT = False  # the random-init trunk warning, once per process
 
 
 def resolve_device(cfg) -> torch.device:
@@ -79,16 +111,6 @@ def resolve_device(cfg) -> torch.device:
             "no CUDA device is available; pass platform=cpu to run the port on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
-
-
-def check_supported(cfg) -> None:
-    """Reject the config keys the port does not implement yet, instead of ignoring them."""
-    if cfg.get("weights_bf16", False):
-        raise NotImplementedError("weights_bf16=true is not supported by the port yet")
-    if int(cfg.get("steps_per_dispatch", 1) or 1) > 1:
-        raise NotImplementedError("steps_per_dispatch>1 is not supported by the port yet")
-    if cfg.vicreg.get("vision_weights_path"):
-        raise NotImplementedError("vicreg.vision_weights_path is not supported by the port yet")
 
 
 def mesh_from_cfg(cfg) -> Mesh:
@@ -150,11 +172,22 @@ class TrainState:
     optimizer: Any
 
 
+class _StepGraph:
+    """A CUDA graph of k train steps: its input buffer ([2, k] int64 batch and step
+    numbers), its output ([n metrics, k] float32) and the kernel launches it
+    recorded."""
+
+    def __init__(self, graph, inputs: torch.Tensor, out: torch.Tensor, launches: Dict[str, int]):
+        self.graph, self.inputs, self.out, self.launches = graph, inputs, out, launches
+
+
 class VicregPretrainTask:
     """Owns the configs, the device, the noise buffer and the train/val steps."""
 
+    METRICS = ("vicreg/train/loss", "vicreg/train/repr_loss", "vicreg/train/std_loss",
+               "vicreg/train/cov_loss", "lr")
+
     def __init__(self, cfg):
-        check_supported(cfg)
         self.cfg = cfg
         self.mesh = mesh_from_cfg(cfg)
         self.device = resolve_device(cfg)
@@ -162,11 +195,13 @@ class VicregPretrainTask:
         self.rows = self.mesh.local_rows(self.synth.batch_size)
         self._bf16 = cfg.get("precision") == "bf16"
         self._grads_bf16 = self._bf16 and bool(cfg.get("grads_bf16", False))
+        self._weights_bf16 = bool(cfg.get("weights_bf16", False))
         # the fixed-seed noise buffer of this rank's rows, made once per run (rows
         # are position-keyed)
         self._noise = make_noise(
             self.synth, self.device, self.rows.stop - self.rows.start, self.rows.start
         )
+        self._seed_key = prng.prng_key(self.synth.seed).to(self.device)
         self.fused_render = fused_render_available(self.synth)
         log.info(
             "render path: %s",
@@ -174,6 +209,18 @@ class VicregPretrainTask:
             if self.fused_render
             else "plain render_voice (geometry not taken by the kernel)",
         )
+        # how train_step_multi runs k steps, fixed here
+        anomaly = bool(cfg.get("detect_anomaly", False)) or torch.is_anomaly_enabled()
+        eager = ("a CPU run" if self.device.type != "cuda" else
+                 "a process group is not captured" if self.mesh.distributed else
+                 "anomaly mode" if anomaly else None)
+        self._use_graphs = eager is None
+        self.dispatch_path = ("cuda graph: one graph per dispatch length, replayed" if eager is None
+                              else f"eager: in order through train_step ({eager})")
+        self._graphs: Dict[int, _StepGraph] = {}
+        self._capturing = False
+        self._eager_steps = 0
+        self._dispatch_logged = False
 
     # -- state -----------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -181,31 +228,68 @@ class VicregPretrainTask:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         with torch.device(self.device):
             model = build_vicreg_model(self.cfg, generator=gen)
+        self._maybe_load_vision_weights(model)
+        if self._weights_bf16:
+            # bf16 storage of the >=2-D weights; 1-D ones (biases, BatchNorm) stay
+            # float32, as the JAX package keeps them
+            for p in model.parameters():
+                if p.dim() >= 2:
+                    p.data = p.data.to(torch.bfloat16)
         apply_mesh(model, self.mesh)  # the full model from the seed, then this rank's shard
-        dropout_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self._dropout_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         for m in model.modules():
             if isinstance(m, Dropout):
-                m.generator = dropout_gen
-        optimizer, self.schedule = make_optimizer(
-            self.cfg.vicreg.optim,
-            self.cfg.vicreg.batch_size,
-            list(model.parameters()),
-            self.cfg.vicreg.get("scheduler"),
-            mesh=self.mesh,
-            split=split_flags(model, self.mesh),
-        )
+                m.generator = self._dropout_gen
+        named = list(model.named_parameters())
+        names = [n for n, _ in named]
+
+        def make(params):
+            optimizer, self.schedule = make_optimizer(
+                self.cfg.vicreg.optim,
+                self.cfg.vicreg.batch_size,
+                params,
+                self.cfg.vicreg.get("scheduler"),
+                mesh=self.mesh,
+                split=split_flags(model, self.mesh),
+                names=names,
+            )
+            return optimizer
+
+        params = [p for _, p in named]
+        optimizer = Fp32Master(params, make, names) if self._weights_bf16 else make(params)
         return TrainState(0, model, optimizer)
+
+    def _maybe_load_vision_weights(self, model: VICRegModule) -> None:
+        """Load a torchvision trunk into the audio tower when
+        ``vicreg.vision_weights_path`` is set (the reference trains from ImageNet
+        weights); warn once per process when ``pretrained_vision_model`` asks for
+        them and no path is set."""
+        global _WARNED_RANDOM_INIT
+        path = self.cfg.vicreg.get("vision_weights_path")
+        if path:
+            load_into_audio_embedding(model, load_vision_weights_file(path))
+            log.info("loaded pretrained vision trunk from %s", path)
+        elif self.cfg.vicreg.get("pretrained_vision_model") and not _WARNED_RANDOM_INIT:
+            _WARNED_RANDOM_INIT = True
+            log.warning(
+                "pretrained_vision_model=true but vicreg.vision_weights_path is unset: the "
+                "vision trunk is random-init. Convert torchvision weights with `python -m "
+                "inverse_audio_synthesis_tpu_torch.models.torch_import` and set the path."
+            )
 
     # -- steps -------------------------------------------------------------------
     def _autocast(self):
+        # no cast cache under capture: a cached cast would be made once, at capture
         return torch.autocast(
-            device_type=self.device.type, dtype=torch.bfloat16, enabled=self._bf16
+            device_type=self.device.type, dtype=torch.bfloat16, enabled=self._bf16,
+            cache_enabled=not self._capturing,
         )
 
-    def synthesize(self, batch_num: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def synthesize(self, batch_num) -> Tuple[torch.Tensor, torch.Tensor]:
         """(audio [B, 1, Ta], params01 [B, 78]) of this rank's rows for a batch
-        number: the global batch's parameters are drawn, its rows rendered."""
-        params01 = sample_voice_params(batch_num, self.synth, self.device)[self.rows]
+        number (an int, or an int64 tensor on the device): the global batch's
+        parameters are drawn, its rows rendered."""
+        params01 = sample_voice_params(batch_num, self.synth, self.device, self._seed_key)[self.rows]
         audio = render_voice_auto(params01, self.synth, noise=self._noise)
         return audio[:, None, :], params01
 
@@ -219,7 +303,9 @@ class VicregPretrainTask:
             mesh=self.mesh if self.mesh.distributed else None,
         )
 
-    def train_step(self, state: TrainState, batch_num: int) -> Tuple[TrainState, Dict[str, Any]]:
+    def _step(self, state: TrainState, batch_num, step) -> Dict[str, torch.Tensor]:
+        """One update of ``state`` in place (not its step count); ``batch_num`` and
+        ``step`` are ints or int64 tensors on the device. Returns the metrics."""
         model = state.model
         model.train()
         audio, params01 = self.synthesize(batch_num)
@@ -230,17 +316,60 @@ class VicregPretrainTask:
         grads = reduce_gradients(torch.autograd.grad(loss, params), self.mesh)
         if self._grads_bf16:
             grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
-        lr = schedule_value(self.schedule, state.step)  # lr of the update being applied
+        lr = schedule_value(self.schedule, step)  # lr of the update being applied
         state.optimizer.step(list(grads))
+        return dict(zip(self.METRICS, (loss.detach(), repr_l.detach(), std_l.detach(),
+                                       cov_l.detach(), lr)))
+
+    def train_step(self, state: TrainState, batch_num: int) -> Tuple[TrainState, Dict[str, Any]]:
+        metrics = self._step(state, batch_num, state.step)
         state.step += 1
-        metrics = {
-            "vicreg/train/loss": loss.detach(),
-            "vicreg/train/repr_loss": repr_l.detach(),
-            "vicreg/train/std_loss": std_l.detach(),
-            "vicreg/train/cov_loss": cov_l.detach(),
-            "lr": lr,
-        }
+        self._eager_steps += 1
         return state, metrics
+
+    def train_step_multi(self, state: TrainState, batch_nums) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """len(batch_nums) train steps -> (state, metrics stacked [k]), the same
+        steps as that many ``train_step`` calls, by ``dispatch_path``. On the graph
+        path a task's first dispatch runs eagerly when no eager step has run yet:
+        every lazy set-up (the render library, cuBLAS and cuDNN handles, cached
+        filters) happens outside a capture."""
+        if not self._dispatch_logged:
+            self._dispatch_logged = True
+            log.info("steps_per_dispatch path: %s", self.dispatch_path)
+        if not self._use_graphs or not self._eager_steps:
+            rows = []
+            for n in batch_nums:
+                state, m = self.train_step(state, n)
+                rows.append(m)
+            return state, {k: torch.stack([m[k] for m in rows]) for k in self.METRICS}
+        k = len(batch_nums)
+        graph = self._graphs.get(k) or self._capture(state, k)
+        host = torch.tensor([list(batch_nums), list(range(state.step, state.step + k))],
+                            dtype=torch.int64, pin_memory=True)
+        graph.inputs.copy_(host, non_blocking=True)
+        graph.graph.replay()
+        R.count_replay(graph.launches)
+        state.step += k
+        return state, dict(zip(self.METRICS, graph.out.clone().unbind(0)))
+
+    def _capture(self, state: TrainState, k: int) -> _StepGraph:
+        """Capture k train steps into a CUDA graph (nothing runs; the steps run at
+        each replay)."""
+        inputs = torch.zeros((2, k), dtype=torch.int64, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._dropout_gen)
+        self._capturing = True
+        try:
+            with R.recording_launches() as launches, torch.cuda.graph(graph):
+                out = torch.stack([
+                    torch.stack([v.float() for v in self._step(state, inputs[0, j], inputs[1, j]).values()])
+                    for j in range(k)
+                ], dim=1)
+        finally:
+            self._capturing = False
+        self._graphs[k] = _StepGraph(graph, inputs, out, dict(launches))
+        log.info("captured a CUDA graph of %d train steps (%s kernel launches recorded)", k, dict(launches))
+        return self._graphs[k]
 
     @torch.no_grad()
     def val_step(self, state: TrainState, batch_num: int) -> Dict[str, torch.Tensor]:

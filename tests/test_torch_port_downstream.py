@@ -390,5 +390,3 @@ def test_downstream_cli_refuses_without_cuda_or_platform_cpu(monkeypatch, tmp_pa
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="platform=cpu"):
         downstream.app(load_config(overrides=SLICE + [f"run_dir={tmp_path}"]))
-    with pytest.raises(NotImplementedError):
-        downstream.app(load_config(overrides=SLICE + ["platform=cpu", "steps_per_dispatch=2"]))

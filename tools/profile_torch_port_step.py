@@ -2,7 +2,7 @@
 """Where the time of one train step of the PyTorch port goes, on one CUDA card.
 
     python3 tools/profile_torch_port_step.py [--task vicreg|downstream|retrieval] [--steps N]
-        [--nccl-rank] [overrides ...]
+        [--nccl-rank] [--steps-per-dispatch K] [overrides ...]
 
 Builds the pretraining task at the default full config (vicreg=full, bf16), or
 with ``--task downstream`` the downstream task at the default downstream config
@@ -23,6 +23,10 @@ measures:
   - the host (CPU) self time per step of the operators that take the most.
 ``--nccl-rank`` runs the task as the one rank of an NCCL process group, so that
 the step takes the distributed code path with its collectives as real calls.
+``--steps-per-dispatch K`` (pretraining) drives the steps K at a time through
+``train_step_multi``, which on the card replays one CUDA graph of K steps
+(captured in the warm-up), and adds the host's launch calls per step, kernels
+(``cudaLaunchKernel``) and graphs (``cudaGraphLaunch``), to the figures.
 Prints one JSON line last. Needs a CUDA device; prints "not measured" for the
 profiler numbers if the profiler records no device time.
 """
@@ -56,13 +60,58 @@ def _group(kernel_name: str) -> str:
     return "other"
 
 
+HOST_LAUNCH_CALLS = {"kernel": ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"),
+                     "graph": ("cudaGraphLaunch", "cuGraphLaunch")}
+
+
+def profile_window(run, n_steps: int, unprofiled_ms: float):
+    """Profile ``run()`` (which takes ``n_steps`` train steps and returns after
+    the card has finished them) -> per step: device busy ms (the sum of kernel
+    durations: one stream, so they do not overlap), the idle share against
+    ``unprofiled_ms``, kernels run on the card, the host's launch calls by kind,
+    and the profiler itself (kernel name -> [device us, count], key averages)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        prof_step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    kernels = defaultdict(lambda: [0.0, 0])  # name -> [device us, launches]
+    calls = dict.fromkeys(HOST_LAUNCH_CALLS, 0)
+    for evt in prof.events():
+        # the device-side copies of the named ranges span kernels; they are not kernels
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.name.startswith("retrieval/"):
+            k = kernels[evt.name]
+            k[0] += evt.time_range.elapsed_us()
+            k[1] += 1
+        for kind, names in HOST_LAUNCH_CALLS.items():
+            if evt.device_type == torch.autograd.DeviceType.CPU and evt.name in names:
+                calls[kind] += 1
+    busy_ms = sum(v[0] for v in kernels.values()) / 1e3 / n_steps
+    measured = busy_ms > 0
+    return {
+        "step_ms_profiled": prof_step_ms,
+        "device_busy_ms_per_step": busy_ms if measured else "not measured",
+        # kernel durations are not inflated by the profiler; its host cost is, so the
+        # idle share is taken against the unprofiled step
+        "device_idle_share": (1.0 - busy_ms / unprofiled_ms) if measured else "not measured",
+        "kernel_launches_per_step": sum(v[1] for v in kernels.values()) / n_steps if measured else "not measured",
+        "host_launch_calls_per_step": {k: v / n_steps for k, v in calls.items()},
+    }, kernels, prof
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", choices=("vicreg", "downstream", "retrieval"), default="vicreg")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--nccl-rank", action="store_true")
+    ap.add_argument("--steps-per-dispatch", type=int, default=1)
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args()
+    k = args.steps_per_dispatch
+    if k > 1 and args.task != "vicreg":
+        raise SystemExit("--steps-per-dispatch is for --task vicreg")
 
     import torch
 
@@ -117,44 +166,40 @@ def main() -> int:
         def step(i):  # one candidate batch; it ends by reading the mask on the host
             evaluator.step(i + 1)
     else:
-        def step(i):
+        def step(i):  # k train steps from batch number i (one dispatch)
             nonlocal state
-            state, _ = task.train_step(state, i)
+            if k == 1:
+                state, _ = task.train_step(state, i)
+            else:
+                state, _ = task.train_step_multi(state, list(range(i, i + k)))
 
-    for i in range(3):
-        step(i)
+    for i in range(3):  # with k > 1: the first runs eagerly, the second captures the graph
+        step(i * k)
     torch.cuda.synchronize()
 
-    n = args.steps
+    n = args.steps  # dispatches; n * k steps
     t0 = time.perf_counter()
     for i in range(n):
-        step(100 + i)
+        step(100 + i * k)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / n * 1e3
-    print(f"{args.task} step, no sync between steps: {step_ms:.2f} ms (batch {batch})", flush=True)
+    step_ms = (time.perf_counter() - t0) / (n * k) * 1e3
+    print(f"{args.task} step, no sync between steps: {step_ms:.2f} ms (batch {batch}, "
+          f"{k} steps a dispatch)", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    step(150)
+    step(150 * k)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def window():
         for i in range(n):
-            step(200 + i)
+            step(200 * k + i * k)
         torch.cuda.synchronize()
-        prof_step_ms = (time.perf_counter() - t0) / n * 1e3
 
-    kernels = defaultdict(lambda: [0.0, 0])  # name -> [device us, launches]
-    for evt in prof.events():
-        # the device-side copies of the named ranges span kernels; they are not kernels
-        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.name.startswith("retrieval/"):
-            k = kernels[evt.name]
-            k[0] += evt.time_range.elapsed_us()
-            k[1] += 1
-    busy_ms = sum(v[0] for v in kernels.values()) / 1e3 / n
-    launches = sum(v[1] for v in kernels.values()) / n
+    figures, kernels, prof = profile_window(window, n * k, step_ms)
+    n = n * k  # per step below
+    busy_ms = figures["device_busy_ms_per_step"] if figures["device_busy_ms_per_step"] != "not measured" else 0.0
+    launches = figures["kernel_launches_per_step"] if busy_ms > 0 else 0.0
+    prof_step_ms = figures["step_ms_profiled"]
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     groups = defaultdict(float)  # group -> device ms per step
     for name, (us, _) in kernels.items():
@@ -180,14 +225,10 @@ def main() -> int:
         "device": smi,
         "task": args.task,
         "nccl_rank": args.nccl_rank,
+        "steps_per_dispatch": k,
         "batch": batch,
         "step_ms_no_sync": step_ms,
-        "step_ms_profiled": prof_step_ms,
-        "device_busy_ms_per_step": busy_ms if busy_ms > 0 else "not measured",
-        # kernel durations are not inflated by the profiler; its host cost is, so the
-        # idle share is taken against the unprofiled step
-        "device_idle_share": (1.0 - busy_ms / step_ms) if busy_ms > 0 else "not measured",
-        "kernel_launches_per_step": launches if busy_ms > 0 else "not measured",
+        **figures,
         "device_ms_per_step_by_group": dict(groups),
         "device_ms_per_step_by_op": {key: ms for ms, _, key in ops[:20]},
         "device_ms_per_step_by_range": ranges,
@@ -196,7 +237,8 @@ def main() -> int:
     }
     print(f"device busy {busy_ms:.2f} ms per step ({prof_step_ms:.2f} ms profiled, "
           f"{step_ms:.2f} ms unprofiled); "
-          f"{launches:.0f} kernel launches per step", flush=True)
+          f"{launches:.0f} kernel launches per step; host launch calls per step "
+          f"{figures['host_launch_calls_per_step']}", flush=True)
     for name, (us, count) in top:
         print(f"  {us / n / 1e3:8.3f} ms/step  {count / n:6.0f} launches  {name[:110]}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
