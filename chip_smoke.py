@@ -17,6 +17,17 @@ Phases, each printing its own lines:
      the plain version's and a second launch bit-identical to the first, and the
      times of both beside the bound (CUDA events, median over launches with the
      L2 cache flushed before each);
+  2b. the JAX package's committed probes (tests/golden/torchsynth_probes: 4
+     probes of 4 voices at 4 s / 44.1 kHz / 441 Hz): compute_controls on the
+     card from each probe's params01, then K1 through render_voice_fused (one
+     launch per probe, noise rows 0-3, the counters reset just before and read
+     just after) and the portable render_voice on the card, held at
+     tests/test_torch_port_golden.py's bounds: natural values within 1e-5,
+     midi_f0 within 1e-6, routed within 2e-5 but at one control sample per
+     voice at most, float16 audio within 2e-3 over the first 0.25 s and 0.1
+     rel-rms per voice over 4 s, K1 and the portable render within 0.08 / 0.01;
+     per probe the routed max, its exceedances, the audio max over the first
+     0.25 s and at 4 s and the per-voice rel-rms;
   3. the render backward kernel (K2) against its plain version at batch 128 and
      1024 (d_routed within 5e-4 and d_scalars within 1e-4 of each signal's and
      column's largest value), against autograd of the plain forward at batch 16
@@ -128,6 +139,11 @@ PHASE_TOLERANCE = {"max_abs": 2e-3, "rel_rms": 1e-4}
 # for its backward (tests/test_pallas_render.py), per signal / scalar column
 BWD_TOLERANCE = {"d_routed": 5e-4, "d_scalars": 1e-4}
 N_STEPS = 4
+# the synth against the JAX package's committed probes: tests/test_torch_port_golden.py's bounds
+GOLDEN_PROBES = ("batch0", "batch1", "mid", "corners")
+GOLDEN_TOLERANCE = {"natural": 1e-5, "midi_f0": 1e-6, "routed": 2e-5, "routed_exceedances": 1,
+                    "head_max": 2e-3, "voice_rel_rms": 0.1, "paths_max": 0.08, "paths_rel_rms": 0.01}
+GOLDEN_HEAD = 11_025  # the first 0.25 s
 
 
 def log(msg: str) -> None:
@@ -275,6 +291,87 @@ def phase_render() -> dict:
         del noise, routed, scalars
         torch.cuda.empty_cache()
     return result
+
+
+def _voice_rel_rms(ref, x):
+    """Per voice (row) rms(x - ref) / rms(ref), numpy."""
+    import numpy as np
+
+    return np.sqrt(np.mean((x - ref) ** 2, axis=-1)) / (np.sqrt(np.mean(ref**2, axis=-1)) + 1e-12)
+
+
+def phase_golden() -> dict:
+    """The JAX package's committed probes through compute_controls and K1 on the
+    card at 4 s, and through the portable render on the card."""
+    import numpy as np
+    import torch
+
+    from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.synth import SynthConfig, from_0to1
+    from inverse_audio_synthesis_tpu_torch.synth.voice import (
+        VOICE_PARAM_SPECS,
+        compute_controls,
+        make_noise,
+        render_voice,
+        render_voice_fused,
+    )
+
+    tol = GOLDEN_TOLERANCE
+    probe_dir = Path(__file__).resolve().parent / "tests" / "golden" / "torchsynth_probes"
+    probes = {name: dict(np.load(probe_dir / f"probe_{name}.npz")) for name in GOLDEN_PROBES}
+    cfg = SynthConfig(batch_size=4, buffer_size_seconds=4.0)
+    noise = make_noise(cfg, "cuda")
+    inputs = {name: torch.from_numpy(d["params01"]).cuda() for name, d in probes.items()}
+    torch.cuda.synchronize()
+    R.reset_launch_counts()
+    k1 = {name: render_voice_fused(p, cfg, noise) for name, p in inputs.items()}
+    torch.cuda.synchronize()
+    launches = dict(R.launch_counts)
+    if launches["render_fwd"] != len(GOLDEN_PROBES):
+        raise AssertionError(f"K1 launches {launches}, need one per probe")
+    out = {"launches": launches, "probes": {}}
+    for name, d in probes.items():
+        params01 = inputs[name]
+        natural = torch.stack([from_0to1(s, params01[:, i]) for i, s in enumerate(VOICE_PARAM_SPECS)], 1)
+        _, routed, midi_f0 = compute_controls(params01, cfg)
+        nat_err = np.abs(natural.cpu().numpy() - d["natural"]) - tol["natural"] * np.abs(d["natural"])
+        f0_err = float(np.abs(midi_f0.cpu().numpy() - d["midi_f0"]).max())
+        r_err = np.abs(routed.cpu().numpy() - d["routed"]).max(axis=1)  # [voice, control sample]
+        over = [np.nonzero(r_err[v] > tol["routed"])[0].tolist() for v in range(r_err.shape[0])]
+        exceed = [(v, t, float(r_err[v, t])) for v in range(len(over)) for t in over[v]]
+        ref = d["audio"].astype(np.float32)
+        audio = {"k1": k1[name].cpu().numpy(), "portable": render_voice(params01, cfg, noise).cpu().numpy()}
+        row = {"routed_max": float(r_err.max()), "routed_exceedances": exceed, "midi_f0_max": f0_err}
+        for path, a in audio.items():
+            if a.shape != ref.shape or not np.isfinite(a).all():
+                raise AssertionError(f"probe {name} {path}: audio not finite or of shape {a.shape}")
+            q = a.astype(np.float16).astype(np.float32)
+            row[path] = {"head_max": float(np.abs(q[:, :GOLDEN_HEAD] - ref[:, :GOLDEN_HEAD]).max()),
+                         "max_4s": float(np.abs(q - ref).max()),
+                         "voice_rel_rms": [float(v) for v in _voice_rel_rms(ref, q)]}
+        row["paths_max"] = float(np.abs(audio["k1"] - audio["portable"]).max())
+        row["paths_rel_rms"] = float(_voice_rel_rms(audio["k1"], audio["portable"]).max())
+        log(f"[golden] {name}: routed max {row['routed_max']:.3e}, beyond {tol['routed']} at "
+            f"(voice, control sample, diff) {[(v, t, f'{e:.3e}') for v, t, e in exceed]}; "
+            f"midi_f0 max {f0_err:.1e}")
+        for path in ("k1", "portable"):
+            log(f"[golden] {name} {path}: audio max first 0.25 s {row[path]['head_max']:.3e}, at 4 s "
+                f"{row[path]['max_4s']:.3e}; per-voice rel-rms {['%.4f' % v for v in row[path]['voice_rel_rms']]}")
+        log(f"[golden] {name} K1 vs portable on the card: max {row['paths_max']:.3e}, "
+            f"rel-rms {row['paths_rel_rms']:.3e}")
+        if nat_err.max() > tol["natural"] or f0_err > tol["midi_f0"]:
+            raise AssertionError(f"probe {name}: natural values or midi_f0 beyond the bound")
+        if max(len(o) for o in over) > tol["routed_exceedances"]:
+            raise AssertionError(f"probe {name}: routed beyond {tol['routed']} at {over}")
+        for path in ("k1", "portable"):
+            if row[path]["head_max"] > tol["head_max"] or max(row[path]["voice_rel_rms"]) > tol["voice_rel_rms"]:
+                raise AssertionError(f"probe {name} {path}: audio beyond the probe bounds: {row[path]}")
+        if row["paths_max"] > tol["paths_max"] or row["paths_rel_rms"] > tol["paths_rel_rms"]:
+            raise AssertionError(f"probe {name}: K1 and the portable render disagree: {row}")
+        out["probes"][name] = row
+    del k1, noise, inputs
+    torch.cuda.empty_cache()
+    return out
 
 
 def _rel_errs(dr_k, ds_k, dr_ref, ds_ref, keep_r=None, keep_s=None):
@@ -1197,6 +1294,7 @@ def main() -> int:
         raise AssertionError("the kernels' division, remainder or floor sequences differ")
 
     render = phase_render()
+    golden = phase_golden()
     render_bwd = phase_render_bwd()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         ckpt_dir = Path(tmp) / "vicreg"
@@ -1226,7 +1324,8 @@ def main() -> int:
             "batch": main_batch,
             "share_of_bound": main["bound_ms"] / main["ms"],
             "resources": resources[name],
-            "launches_by_path": {"vicreg_pretrain": train["launches"][name],
+            "launches_by_path": {"golden_probes": golden["launches"][name],
+                                 "vicreg_pretrain": train["launches"][name],
                                  "vicreg_pretrain_graph": dispatch["graph_launches"][name],
                                  "downstream_combined": downstream["launches"][name],
                                  "retrieval": retrieval["launches"][name]},
@@ -1248,6 +1347,7 @@ def main() -> int:
         str(k): {key: v[key] for key in ("step_ms", "host_launch_calls_per_step", "device_idle_share", "peak_gb")}
         for k, v in dispatch["timing"].items()}
     kernels[1]["downstream_step_ms"] = downstream["step_ms"]
+    kernels[0]["golden_probes"] = golden["probes"]
     kernels[0]["retrieval"] = {k: retrieval[k] for k in ("batch_ms", "candidates_per_s", "k1_share", "noise_ms")}
     log(f"[run] wall time {time.time() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))

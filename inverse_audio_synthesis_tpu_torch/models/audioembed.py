@@ -84,3 +84,7 @@ class AudioEmbedding(nn.Module):
         for name in self.conv_names:
             t = getattr(self, name)(t)
         return t.reshape(t.shape[0], self.dim)
+
+    def features(self, audio: torch.Tensor) -> torch.Tensor:
+        """The embedding of ``audio``: the same as calling the module."""
+        return self(audio)

@@ -93,6 +93,12 @@ class VICRegModule(nn.Module):
         return self.backbone_param(params)
 
 
+def off_diagonal_sq_sum(c: torch.Tensor) -> torch.Tensor:
+    """Sum of the squared off-diagonal entries of a square matrix: the covariance
+    term's reference form (``vicreg_loss`` takes the diagonal from its operands)."""
+    return torch.sum(c**2) - torch.sum(torch.diagonal(c) ** 2)
+
+
 def vicreg_loss(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -139,3 +145,9 @@ def vicreg_loss(
         cov_loss = off_diag_sq(cov_x, xc) / embeddim + off_diag_sq(cov_y, yc) / embeddim
         loss = sim_coeff * repr_loss + std_coeff * std_loss + cov_coeff * cov_loss
     return loss, repr_loss, std_loss, cov_loss
+
+
+def exclude_bias_and_norm(name: str, tensor: torch.Tensor) -> bool:
+    """LARS's mask: True for the tensors it adapts and decays, those of more than
+    one dim; biases and norm scales (1-D) are left out (reference: vicreg.py:98-99)."""
+    return tensor.dim() > 1

@@ -93,6 +93,11 @@ def sincos_fast(x: torch.Tensor):
     return _pick(k, s, c, -s, -c), _pick(k, c, -s, -c, s)
 
 
+def sin_fast(x: torch.Tensor) -> torch.Tensor:
+    s, c, k = _sincos_reduced(x)
+    return _pick(k, s, c, -s, -c)
+
+
 def cos_fast(x: torch.Tensor) -> torch.Tensor:
     s, c, k = _sincos_reduced(x)
     return _pick(k, c, -s, -c, s)

@@ -1,4 +1,5 @@
-"""Phase accumulation and control-rate upsampling for the portable render.
+"""Phase accumulation, chunked prefix sums and control-rate upsampling for the
+portable render.
 
 Counterpart of the JAX package's ``ops/scan_ops.py``. The portable render
 (synth/voice.py:render_voice) uses these for the geometries the render kernel
@@ -26,6 +27,21 @@ def fmod_floor(x: torch.Tensor, y: float) -> torch.Tensor:
 def _pad_to_chunk(x: torch.Tensor, chunk: int) -> torch.Tensor:
     pad = (-x.shape[-1]) % chunk
     return F.pad(x, (0, pad)) if pad else x
+
+
+def chunked_cumsum(x: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+    """Cumulative sum over the last axis in chunks of ``chunk``: each chunk's
+    prefix sums plus the exclusive cumsum of the chunk totals (the JAX package's
+    association; the last chunk is zero-padded, which only receives sums)."""
+    *lead, t = x.shape
+    if t <= chunk:
+        return torch.cumsum(x, dim=-1)
+    x = _pad_to_chunk(x, chunk)
+    n_chunks = x.shape[-1] // chunk
+    within = torch.cumsum(x.reshape(*lead, n_chunks, chunk), dim=-1)
+    totals = within[..., -1]
+    offsets = torch.cumsum(totals, dim=-1) - totals
+    return (within + offsets[..., None]).reshape(*lead, n_chunks * chunk)[..., :t]
 
 
 def phase_cumsum(dphi: torch.Tensor, chunk: int = 128) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""STFT, mel spectrogram and the multi-resolution STFT loss, in torch.
+"""STFT, mel spectrogram and the multi-resolution STFT loss and its two terms, in torch.
 
 Counterpart of the JAX package's ``ops/stft.py`` (torchaudio semantics: periodic
 Hann window, center=True with reflect padding, power spectrogram, HTK mel scale
@@ -150,6 +150,21 @@ class MelSpectrogram:
         return torch.matmul(spec.transpose(-1, -2), self.fb).transpose(-1, -2)
 
 
+def _log_magnitude(m: torch.Tensor) -> torch.Tensor:
+    return torch.log(torch.clamp_min(m, 1e-7))
+
+
+def spectral_convergence_loss(mag_pred: torch.Tensor, mag_true: torch.Tensor) -> torch.Tensor:
+    """||Mt - Mp||_F / (||Mt||_F + 1e-8)."""
+    num = torch.sqrt(torch.sum((mag_true - mag_pred) ** 2))
+    return num / (torch.sqrt(torch.sum(mag_true**2)) + 1e-8)
+
+
+def log_stft_magnitude_loss(mag_pred: torch.Tensor, mag_true: torch.Tensor) -> torch.Tensor:
+    """Mean |log Mt - log Mp|, each magnitude floored at 1e-7."""
+    return torch.mean(torch.abs(_log_magnitude(mag_true) - _log_magnitude(mag_pred)))
+
+
 def _stft_n_frames(t: int, n_fft: int, hop: int, center: bool = True) -> int:
     """Frame count of the centered STFT (T + 2 * (n_fft // 2) padded)."""
     if center:
@@ -166,7 +181,9 @@ def mrstft_stats(
 ) -> torch.Tensor:
     """The MR-STFT loss's sufficient statistics [n_res, 4] of a batch of pairs:
     per resolution sum (Mt-Mp)^2, sum Mt^2, sum |log Mt - log Mp| and sum |log Mt
-    - log 1e-7|. Sums over rows: batches add them. Batches larger than
+    - log 1e-7|, from which ``mrstft_from_stats`` rebuilds
+    ``spectral_convergence_loss`` and ``log_stft_magnitude_loss`` of the whole
+    batch. Sums over rows: batches add them. Batches larger than
     ``batch_chunk`` pairs run in chunks; the last chunk is zero-padded, and padded
     rows add exactly zero."""
     if method not in METHODS:
@@ -181,11 +198,11 @@ def mrstft_stats(
         for n_fft, hop, win in resolutions:
             m = stft(pair, n_fft=n_fft, hop_length=hop, win_length=win).abs()
             mp, mt = m[0], m[1]
-            log_mt = torch.log(torch.clamp_min(mt, 1e-7))
+            log_mt = _log_magnitude(mt)
             rows.append(torch.stack([
                 torch.sum((mt - mp) ** 2),
                 torch.sum(mt**2),
-                torch.sum(torch.abs(log_mt - torch.log(torch.clamp_min(mp, 1e-7)))),
+                torch.sum(torch.abs(log_mt - _log_magnitude(mp))),
                 torch.sum(torch.abs(log_mt - log_floor)),
             ]))
         return torch.stack(rows)

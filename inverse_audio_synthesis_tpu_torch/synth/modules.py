@@ -21,7 +21,12 @@ from inverse_audio_synthesis_tpu_torch.ops.math_ops import (
     sincos_fast,
     tanh_fast,
 )
-from inverse_audio_synthesis_tpu_torch.ops.scan_ops import TWO_PI, fmod_floor, phase_cumsum
+from inverse_audio_synthesis_tpu_torch.ops.scan_ops import (
+    TWO_PI,
+    fmod_floor,
+    linear_upsample,
+    phase_cumsum,
+)
 from inverse_audio_synthesis_tpu_torch.synth import prng
 
 _EPS = 1e-9
@@ -98,7 +103,11 @@ def lfo(params: Dict[str, torch.Tensor], rate_mod: torch.Tensor, control_rate: f
     exponent-sharpened selection weights. Output in [0, 1]."""
     freq = params["frequency"][:, None]
     freq = maximum(freq + params["mod_depth"][:, None] * rate_mod, 0.0)
-    argument = torch.cumsum(2.0 * math.pi * freq / control_rate, dim=1)
+    # summed in float64 and rounded once per sample, as torch's CPU cumsum sums
+    # float32, so the card's argument is the CPU's: CUDA's float32 scan associates
+    # otherwise, and over a 4 s voice its ~1e-5 rad moves the routed controls
+    # beyond 2e-5 of the JAX package's (tests/test_torch_port_golden.py)
+    argument = torch.cumsum((2.0 * math.pi * freq / control_rate).double(), dim=1).float()
     argument = argument + params["initial_phase"][:, None]
 
     cos = (torch.cos(argument + math.pi) + 1.0) / 2.0
@@ -197,3 +206,9 @@ def modulation_mixer(weights: torch.Tensor, signals: torch.Tensor) -> torch.Tens
 def audio_mixer(levels: torch.Tensor, signals: torch.Tensor) -> torch.Tensor:
     """levels [B, n_in] . signals [B, n_in, Ta] -> [B, Ta]."""
     return torch.einsum("bi,bit->bt", levels, signals)
+
+
+def upsample_control(control: torch.Tensor, n_audio_samples: int) -> torch.Tensor:
+    """Control rate -> audio rate by linear interpolation with half-pixel centers
+    (``ops/scan_ops.py:linear_upsample``)."""
+    return linear_upsample(control, n_audio_samples)

@@ -29,7 +29,6 @@ from inverse_audio_synthesis_tpu_torch.ops.render import (
     fused_render_supported,
     render_audio_fused,
 )
-from inverse_audio_synthesis_tpu_torch.ops.scan_ops import linear_upsample
 from inverse_audio_synthesis_tpu_torch.synth import modules, prng
 from inverse_audio_synthesis_tpu_torch.synth.config import SynthConfig
 from inverse_audio_synthesis_tpu_torch.synth.parameter import ParamSpec, from_0to1
@@ -161,7 +160,7 @@ def render_voice(
     ta = config.buffer_size
     b = params01.shape[0]
     p, routed, midi_f0 = compute_controls(params01, config)
-    up = [linear_upsample(routed[:, i], ta) for i in range(5)]
+    up = [modules.upsample_control(routed[:, i], ta) for i in range(5)]
     vco_1_pitch, vco_1_amp, vco_2_pitch, vco_2_amp, noise_amp = up
     vco_1 = modules.vca(modules.sine_vco(p["vco_1"], midi_f0, vco_1_pitch, sr), vco_1_amp)
     vco_2 = modules.vca(

@@ -27,8 +27,13 @@ test mel-L1, the multi-resolution STFT loss and the parameter MAE beside their
 trivial-baseline floors (constant-0.5 parameters, silence).
 
 Under a distributed mesh (``parallel/mesh.py``) each rank holds its rows of the
-global batch (``audio_to_params.batch_size``); the head's BatchNorm and Dropout
-follow ``models/layers.py``. Every loss and metric is the global batch's: each
+global batch (``audio_to_params.batch_size``). Every rank runs the head on the
+whole batch's gathered representation and keeps its rows (``_predict``): the
+head is small beside the towers, and so its BatchNorm statistics, dropout masks
+and GEMM shapes are one process's, and each row's prediction is one process's
+bit for bit. (Summed over the data group instead, the statistics and the GEMMs
+differ in the last bits, which the grad-through-synth objectives amplify to
+O(1) in the gradient, PERF.md.) Every loss and metric is the global batch's: each
 rank's partial sum goes through ``global_sum`` (``reduce_from``: identity
 backward, since every rank goes on with the same value) and is divided by the
 global count. ``mel_rows`` keeps its meaning of the leading rows of the global
@@ -52,8 +57,7 @@ from inverse_audio_synthesis_tpu_torch.models.audio_to_params import AudioRepres
 from inverse_audio_synthesis_tpu_torch.models.layers import BatchNorm, Dropout
 from inverse_audio_synthesis_tpu_torch.ops.stft import METHODS as STFT_METHODS
 from inverse_audio_synthesis_tpu_torch.ops.stft import MelSpectrogram, mrstft_from_stats, mrstft_stats
-from inverse_audio_synthesis_tpu_torch.parallel.collectives import global_sum
-from inverse_audio_synthesis_tpu_torch.parallel.mesh import apply_mesh
+from inverse_audio_synthesis_tpu_torch.parallel.collectives import gather_rows, global_sum
 from inverse_audio_synthesis_tpu_torch.synth import prng
 from inverse_audio_synthesis_tpu_torch.synth.voice import (
     RENDER_BWD,
@@ -171,7 +175,6 @@ class AudioToParamsTask:
                 nparams=self.cfg.nparams, dim=self.cfg.dim, hidden_norm=a2p.hidden_norm,
                 dropout=a2p.dropout, generator=gen,
             )
-        apply_mesh(head, self.mesh)  # replicated: BatchNorm and Dropout read the mesh
         dropout_gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 2)
         for m in head.modules():
             if isinstance(m, Dropout):
@@ -216,12 +219,19 @@ class AudioToParamsTask:
             true_emb = self._embed_params(params01).float()
             frozen_loss = self._mean((true_emb - self._project_repr(audio_repr).float()) ** 2)
         with self._autocast():
-            pred_params = head(audio_repr.float())
+            pred_params = self._predict(head, audio_repr.float())
         repr_loss = None
         if with_pred_emb:
             pred_emb = self._embed_params(pred_params).float()
             repr_loss = self._mean((true_emb - pred_emb) ** 2)
         return pred_params, repr_loss, frozen_loss
+
+    def _predict(self, head, audio_repr: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the head's output on the global batch's
+        representation (the head holds no mesh: it sees the whole batch)."""
+        if not self.mesh.distributed:
+            return head(audio_repr)
+        return head(gather_rows(audio_repr, self.mesh))[self.rows]
 
     def _mean(self, x: torch.Tensor, dim=None) -> torch.Tensor:
         """The mean over the global batch (dim 0 leading) of this rank's rows ``x``:

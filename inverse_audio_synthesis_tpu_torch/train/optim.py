@@ -52,6 +52,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 import torch
 import torch.distributed as dist
 
+from inverse_audio_synthesis_tpu_torch.models.vicreg import exclude_bias_and_norm as lars_mask
 from inverse_audio_synthesis_tpu_torch.parallel.collectives import all_reduce_
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
@@ -214,8 +215,13 @@ class FusedLars(_Guarded):
         self.eps = eps
         self.exclude_bias_and_norm = exclude_bias_and_norm
 
-    def _decays(self, w: torch.Tensor) -> bool:
-        return self.weight_decay != 0.0 and not (self.exclude_bias_and_norm and w.dim() == 1)
+    def _masked(self, i: int) -> bool:
+        """Whether LARS adapts and decays parameter ``i``: every parameter, or
+        with ``exclude_bias_and_norm`` those the model's mask keeps (>= 2 dims)."""
+        return not self.exclude_bias_and_norm or lars_mask(self.names[i], self.params[i])
+
+    def _decays(self, i: int) -> bool:
+        return self.weight_decay != 0.0 and self._masked(i)
 
     @torch.no_grad()
     def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -225,7 +231,7 @@ class FusedLars(_Guarded):
         wd = self.weight_decay
         gf = [g.float() for g in grads]
         g_norm = self._norms(gf, range(len(gf)))
-        decayed = [i for i, w in enumerate(self.params) if self._decays(w)]
+        decayed = [i for i in range(len(self.params)) if self._decays(i)]
         w_norm = {}
         if decayed:
             w_norm = dict(zip(decayed, self._norms([self.params[i].float() for i in decayed], decayed)))
@@ -281,8 +287,7 @@ class MomentumLars(FusedLars):
         gf = [g.float() for g in grads]
         isfinite = torch.isfinite(torch.stack(self._norms(gf, range(len(gf))))).all()
         isfinite = _agree_finite(isfinite, self.mesh)
-        masked = [i for i, w in enumerate(self.params)
-                  if not (self.exclude_bias_and_norm and w.dim() == 1)]
+        masked = [i for i in range(len(self.params)) if self._masked(i)]
         u = [torch.where(isfinite, g, 0.0) for g in gf]  # the guard gates the gradients first
         for i in masked:
             u[i] = u[i] + self.weight_decay * self.params[i].float()
