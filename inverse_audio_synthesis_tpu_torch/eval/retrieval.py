@@ -46,7 +46,6 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from inverse_audio_synthesis_tpu_torch.parallel.collectives import agree_max, barrier, gather_rows
 from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh
@@ -57,6 +56,7 @@ from inverse_audio_synthesis_tpu_torch.synth.voice import (
     sample_voice_params,
 )
 from inverse_audio_synthesis_tpu_torch.train.loop import PreemptionGuard
+from inverse_audio_synthesis_tpu_torch.utils.profiling import span
 
 # The planted-query gate's distance scale is at least this multiple of the median
 # query-embedding norm. With rtol 0.05 the gate then admits self-distances up to
@@ -140,14 +140,14 @@ class RetrievalEvaluator:
             best_dist = torch.full_like(best_dist, float("inf"))
         for start in range(0, params.shape[0], k):
             sub = params[start : start + k]
-            # named ranges, read by tools/profile_torch_port_step.py --task retrieval
-            with record_function("retrieval/render"):
+            # spans, read by tools/profile_torch_port_step.py --task retrieval
+            with span("retrieval/render"):
                 audio = render_voice_auto(sub, self._sub_synth, self._noise[start : start + k])
-            with record_function("retrieval/embed"):
+            with span("retrieval/embed"):
                 emb = self.embed_fn(audio[:, None, :]).float()
-            with record_function("retrieval/cdist"):
+            with span("retrieval/cdist"):
                 d = cdist(query_emb, emb)  # [n_q, k]
-            with record_function("retrieval/update"):
+            with span("retrieval/update"):
                 chunk_min, chunk_arg = torch.min(d, dim=1)  # the first minimum on ties
                 improved = chunk_min < best_dist
                 best_dist = torch.where(improved, chunk_min, best_dist)

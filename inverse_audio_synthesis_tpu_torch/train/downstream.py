@@ -72,6 +72,7 @@ from inverse_audio_synthesis_tpu_torch.train.pretrain import (
     VicregPretrainTask,
     synth_config_from_cfg,
 )
+from inverse_audio_synthesis_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -276,31 +277,35 @@ class AudioToParamsTask:
     def train_step(self, state: TrainState, batch_num: int) -> Tuple[TrainState, Dict[str, Any]]:
         head = state.model
         head.train()
-        audio, params01 = self.synthesize(batch_num)
-        pred_params, repr_loss, frozen_loss = self._shared(
-            head, audio, params01, with_pred_emb=self._uses_embedding()
-        )
-        components = {
-            "mel_l1": lambda: self._mel_l1_component(pred_params, audio),
-            "param_mse": lambda: self._mean((pred_params.float() - params01) ** 2),
-            "embedding": lambda: repr_loss,
-        }
-        aux = {}
-        if self.loss_kind == "combined":
-            loss = torch.zeros((), device=self.device)
-            for name, w in self.loss_weights.items():
-                if not w:
-                    continue
-                value = components[name]()
-                aux[name] = value
-                loss = loss + w * value
-        else:
-            loss = components[self.loss_kind]()
-        params = state.optimizer.params
-        grads = reduce_gradients(torch.autograd.grad(loss, params), self.mesh)
-        if self._grads_bf16:
-            grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
-        state.optimizer.step(list(grads))
+        with span("step/synth"):
+            audio, params01 = self.synthesize(batch_num)
+        with span("step/forward"):
+            pred_params, repr_loss, frozen_loss = self._shared(
+                head, audio, params01, with_pred_emb=self._uses_embedding()
+            )
+            components = {
+                "mel_l1": lambda: self._mel_l1_component(pred_params, audio),
+                "param_mse": lambda: self._mean((pred_params.float() - params01) ** 2),
+                "embedding": lambda: repr_loss,
+            }
+            aux = {}
+            if self.loss_kind == "combined":
+                loss = torch.zeros((), device=self.device)
+                for name, w in self.loss_weights.items():
+                    if not w:
+                        continue
+                    value = components[name]()
+                    aux[name] = value
+                    loss = loss + w * value
+            else:
+                loss = components[self.loss_kind]()
+        with span("step/backward"):
+            params = state.optimizer.params
+            grads = reduce_gradients(torch.autograd.grad(loss, params), self.mesh)
+        with span("step/optimizer"):
+            if self._grads_bf16:
+                grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
+            state.optimizer.step(list(grads))
         state.step += 1
         metrics = {
             "audio_to_params/train/loss": loss.detach(),

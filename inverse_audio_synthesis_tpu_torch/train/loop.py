@@ -23,6 +23,11 @@ the metrics are the global batch's, equal on every rank, ``voices_per_sec``
 counts the global batch, and the CLIs give rank 0 alone a logger. A signal that
 reaches any rank stops every rank at the same step: the ranks agree on it
 before each dispatch.
+
+Under a profiler each dispatch is a ``loop/iteration`` span, holding the
+task's ``step/*`` spans and, where they run, ``loop/log``, ``loop/validate``
+and ``loop/checkpoint`` (``utils/profiling.py:span``; nothing is recorded
+without a profiler).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from inverse_audio_synthesis_tpu_torch.parallel.collectives import agree_max
 from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh
 from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.runsetup import BatchNumberSplit
+from inverse_audio_synthesis_tpu_torch.utils.profiling import span
 
 
 class PreemptionGuard:
@@ -144,47 +150,53 @@ class Trainer:
         multi = self.steps_per_dispatch > 1 and hasattr(self.task, "train_step_multi")
         i = start_step
         while i < n_train:
-            requested = agree_max(guard.requested, mesh)
-            if requested is not None:
-                # finish the dispatch, then stop with a resumable checkpoint
-                self.interrupted = guard.requested = int(requested)
+            with span("loop/iteration"):
+                requested = agree_max(guard.requested, mesh)
+                if requested is not None:
+                    # finish the dispatch, then stop with a resumable checkpoint
+                    self.interrupted = guard.requested = int(requested)
+                    if self.checkpoint is not None:
+                        with span("loop/checkpoint"):
+                            self.checkpoint.save(state, i)
+                    self._log({"preempted_by_signal": float(guard.requested)}, step=i)
+                    return state
+                k = self._dispatch_len(i, n_train, start_step) if multi else 1
+                if k > 1:
+                    nums = [self.split.train_batch_num(j) for j in range(i, i + k)]
+                    state, stacked = self.task.train_step_multi(state, nums)
+                    metrics = {key: v[-1] for key, v in stacked.items()}  # the dispatch's last step
+                else:
+                    state, metrics = self.task.train_step(state, self.split.train_batch_num(i))
+                i += k  # steps done; the boundary step's index is i - 1
+                first = i - k == start_step
+                if i % self.log_every == 0 or first:
+                    with span("loop/log"):
+                        metrics = {key: _to_float(v) for key, v in metrics.items()}
+                        metrics["notfinite_steps"] = (
+                            _to_float(state.optimizer.total_notfinite) - self._notfinite_base
+                        )
+                        now = time.time()
+                        steps = k if first else self.log_every
+                        metrics["steps_per_sec"] = steps / max(now - window_start, 1e-9)
+                        # the synth config's batch is the global batch
+                        metrics["voices_per_sec"] = metrics["steps_per_sec"] * self.task.synth.batch_size
+                        window_start = now
+                        bad = {key: v for key, v in metrics.items() if not math.isfinite(v)}
+                        if metrics["notfinite_steps"]:
+                            bad["notfinite_steps"] = metrics["notfinite_steps"]
+                        if bad and self.detect_anomaly:
+                            raise FloatingPointError(
+                                f"non-finite metrics by step {i - 1}: {bad} (non-finite "
+                                f"updates were rejected on the device, not applied)"
+                            )
+                        self._log(metrics, step=i - 1)
+                if self.val_check_interval and i % self.val_check_interval == 0:
+                    with span("loop/validate"):
+                        self._log(self.validate(state), step=i - 1)
                 if self.checkpoint is not None:
-                    self.checkpoint.save(state, i)
-                self._log({"preempted_by_signal": float(guard.requested)}, step=i)
-                return state
-            k = self._dispatch_len(i, n_train, start_step) if multi else 1
-            if k > 1:
-                nums = [self.split.train_batch_num(j) for j in range(i, i + k)]
-                state, stacked = self.task.train_step_multi(state, nums)
-                metrics = {key: v[-1] for key, v in stacked.items()}  # the dispatch's last step
-            else:
-                state, metrics = self.task.train_step(state, self.split.train_batch_num(i))
-            i += k  # steps done; the boundary step's index is i - 1
-            first = i - k == start_step
-            if i % self.log_every == 0 or first:
-                metrics = {key: _to_float(v) for key, v in metrics.items()}
-                metrics["notfinite_steps"] = (
-                    _to_float(state.optimizer.total_notfinite) - self._notfinite_base
-                )
-                now = time.time()
-                steps = k if first else self.log_every
-                metrics["steps_per_sec"] = steps / max(now - window_start, 1e-9)
-                # the synth config's batch is the global batch
-                metrics["voices_per_sec"] = metrics["steps_per_sec"] * self.task.synth.batch_size
-                window_start = now
-                bad = {key: v for key, v in metrics.items() if not math.isfinite(v)}
-                if metrics["notfinite_steps"]:
-                    bad["notfinite_steps"] = metrics["notfinite_steps"]
-                if bad and self.detect_anomaly:
-                    raise FloatingPointError(
-                        f"non-finite metrics by step {i - 1}: {bad} (non-finite "
-                        f"updates were rejected on the device, not applied)"
-                    )
-                self._log(metrics, step=i - 1)
-            if self.val_check_interval and i % self.val_check_interval == 0:
-                self._log(self.validate(state), step=i - 1)
-            if self.checkpoint is not None:
-                self.checkpoint.maybe_save(state, i)
+                    with span("loop/checkpoint"):
+                        self.checkpoint.maybe_save(state, i)
         if self.checkpoint is not None:
-            self.checkpoint.save(state, n_train)  # save_last
+            with span("loop/checkpoint"):
+                self.checkpoint.save(state, n_train)  # save_last
         return state

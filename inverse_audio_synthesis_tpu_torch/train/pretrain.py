@@ -11,6 +11,11 @@ Counterpart of the JAX package's ``train/pretrain.py``. One train step:
    ``precision`` is bf16, the VICReg statistics in float32;
 4. backward, then flash LARS with the non-finite guard.
 
+Under a profiler the four are the spans ``step/synth``, ``step/forward``,
+``step/backward`` and ``step/optimizer`` (``utils/profiling.py:span``; the
+downstream step has the same four); a graph's replay is ``step/graph_replay``
+and its capture ``step/graph_capture``.
+
 No gradient flows into the synth: params01 are data.
 
 Numerics on CUDA: with ``precision: f32`` matmuls run in full float32 (PyTorch's
@@ -93,6 +98,7 @@ from inverse_audio_synthesis_tpu_torch.train.optim import (
     reduce_gradients,
     schedule_value,
 )
+from inverse_audio_synthesis_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 _WARNED_RANDOM_INIT = False  # the random-init trunk warning, once per process
@@ -308,16 +314,20 @@ class VicregPretrainTask:
         ``step`` are ints or int64 tensors on the device. Returns the metrics."""
         model = state.model
         model.train()
-        audio, params01 = self.synthesize(batch_num)
-        with self._autocast():
-            x, y = model(audio, params01)
-        loss, repr_l, std_l, cov_l = self._losses(x, y)
-        params = state.optimizer.params
-        grads = reduce_gradients(torch.autograd.grad(loss, params), self.mesh)
-        if self._grads_bf16:
-            grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
-        lr = schedule_value(self.schedule, step)  # lr of the update being applied
-        state.optimizer.step(list(grads))
+        with span("step/synth"):
+            audio, params01 = self.synthesize(batch_num)
+        with span("step/forward"):
+            with self._autocast():
+                x, y = model(audio, params01)
+            loss, repr_l, std_l, cov_l = self._losses(x, y)
+        with span("step/backward"):
+            params = state.optimizer.params
+            grads = reduce_gradients(torch.autograd.grad(loss, params), self.mesh)
+        with span("step/optimizer"):
+            if self._grads_bf16:
+                grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
+            lr = schedule_value(self.schedule, step)  # lr of the update being applied
+            state.optimizer.step(list(grads))
         return dict(zip(self.METRICS, (loss.detach(), repr_l.detach(), std_l.detach(),
                                        cov_l.detach(), lr)))
 
@@ -344,23 +354,26 @@ class VicregPretrainTask:
             return state, {k: torch.stack([m[k] for m in rows]) for k in self.METRICS}
         k = len(batch_nums)
         graph = self._graphs.get(k) or self._capture(state, k)
-        host = torch.tensor([list(batch_nums), list(range(state.step, state.step + k))],
-                            dtype=torch.int64, pin_memory=True)
-        graph.inputs.copy_(host, non_blocking=True)
-        graph.graph.replay()
+        with span("step/graph_replay"):
+            host = torch.tensor([list(batch_nums), list(range(state.step, state.step + k))],
+                                dtype=torch.int64, pin_memory=True)
+            graph.inputs.copy_(host, non_blocking=True)
+            graph.graph.replay()
+            out = graph.out.clone()
         R.count_replay(graph.launches)
         state.step += k
-        return state, dict(zip(self.METRICS, graph.out.clone().unbind(0)))
+        return state, dict(zip(self.METRICS, out.unbind(0)))
 
     def _capture(self, state: TrainState, k: int) -> _StepGraph:
         """Capture k train steps into a CUDA graph (nothing runs; the steps run at
-        each replay)."""
+        each replay). The steps' phase spans are recorded here, at capture, and
+        not at replay."""
         inputs = torch.zeros((2, k), dtype=torch.int64, device=self.device)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._dropout_gen)
         self._capturing = True
         try:
-            with R.recording_launches() as launches, torch.cuda.graph(graph):
+            with span("step/graph_capture"), R.recording_launches() as launches, torch.cuda.graph(graph):
                 out = torch.stack([
                     torch.stack([v.float() for v in self._step(state, inputs[0, j], inputs[1, j]).values()])
                     for j in range(k)

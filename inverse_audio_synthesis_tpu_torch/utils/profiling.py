@@ -1,4 +1,4 @@
-"""Tracing, numerics debugging and a step timer.
+"""Tracing and numerics debugging.
 
 Counterpart of the JAX package's ``utils/profiling.py``:
 
@@ -10,14 +10,18 @@ Counterpart of the JAX package's ``utils/profiling.py``:
   ``jax_debug_nans``: a backward function that returns NaN raises, naming the
   function, with the traceback of the forward op that made it. ``nan_debugging``
   is the same as a context that restores the previous mode on exit.
-- ``StepTimer``: steady-state steps/s and voices/s after a warm-up.
+- ``span(name)``: a named range of the program's work (the training loop's and
+  step's phases, the retrieval sub-chunk's stages) that a running profiler
+  records, on its clock, beside the card's kernels: ``record_function(name)``
+  while a profiler runs (``trace``, the benchmark's traced window,
+  ``tools/profile_torch_port_step.py``), else one shared null context, so a
+  span costs one check when nothing is profiled. The names are the README's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from pathlib import Path
 from typing import Iterator, Optional
 
@@ -41,6 +45,16 @@ def trace(log_dir: str, cuda: Optional[bool] = None) -> Iterator[torch.profiler.
     prof.export_chrome_trace(str(out / f"trace-{utcstr()}-{os.getpid()}.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler runs, else a null context."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 def enable_nan_debugging() -> None:
     """Turn on anomaly mode for the rest of the process (``jax_debug_nans``)."""
     torch.autograd.set_detect_anomaly(True)
@@ -55,27 +69,3 @@ def nan_debugging(enabled: bool = True) -> Iterator[None]:
         yield
     finally:
         torch.autograd.set_detect_anomaly(before)
-
-
-class StepTimer:
-    def __init__(self, warmup_steps: int = 2, batch_size: int = 1):
-        self.warmup_steps = warmup_steps
-        self.batch_size = batch_size
-        self._count = 0
-        self._t0: Optional[float] = None
-
-    def tick(self) -> None:
-        self._count += 1
-        if self._count == self.warmup_steps:
-            self._t0 = time.time()
-
-    @property
-    def steps_per_sec(self) -> float:
-        measured = self._count - self.warmup_steps
-        if self._t0 is None or measured <= 0:
-            return 0.0
-        return measured / max(time.time() - self._t0, 1e-9)
-
-    @property
-    def voices_per_sec(self) -> float:
-        return self.steps_per_sec * self.batch_size

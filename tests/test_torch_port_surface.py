@@ -41,6 +41,8 @@ JAX_PKG = REPO / "inverse_audio_synthesis_tpu"
 PORT_PKG = "inverse_audio_synthesis_tpu_torch"
 
 _GSPMD = "a GSPMD NamedSharding helper; the port places tensors by rank (parallel/mesh.py: Mesh, shard, apply_mesh)"
+_NO_STEP_TIMER = ("unused; the loop logs steps_per_sec and voices_per_sec (train/loop.py), and "
+                  "utils/profiling.py:span marks the phases a profiler times")
 _MATMUL_DFT = "the matmul-DFT STFT, on ROADMAP's drop list; every method is torch.stft (ops/stft.py:stft)"
 
 # "<module path>:<name>" -> why the port has no counterpart of that name
@@ -68,6 +70,10 @@ DEVIATIONS = {
     "train/pretrain.py:make_render_fn": "chooses Pallas or jnp and shard_maps the kernel; synth/voice.py:render_voice_auto chooses K1 or the portable render",
     "train/pretrain.py:maybe_bf16_grads": "a jit-time XLA cast of the gradients; train/pretrain.py:VicregPretrainTask casts them under grads_bf16",
     "utils/utils.py:enable_compile_cache": "XLA's persistent compile cache; the port builds its kernels once per source into build/kernels",
+    "utils/profiling.py:StepTimer": _NO_STEP_TIMER,
+    "utils/profiling.py:StepTimer.tick": _NO_STEP_TIMER,
+    "utils/profiling.py:StepTimer.steps_per_sec": _NO_STEP_TIMER,
+    "utils/profiling.py:StepTimer.voices_per_sec": _NO_STEP_TIMER,
 }
 
 

@@ -167,13 +167,3 @@ def test_nan_debugging_is_undone_and_raises_at_the_backward_op():
     finally:
         torch.autograd.set_detect_anomaly(False)
 
-
-def test_step_timer(monkeypatch):
-    clock = iter([10.0, 12.0, 12.0])  # the warm-up ends at 10 s; read at 12 s
-    monkeypatch.setattr(profiling.time, "time", lambda: next(clock))
-    timer = profiling.StepTimer(warmup_steps=2, batch_size=16)
-    assert timer.steps_per_sec == 0.0
-    for _ in range(5):
-        timer.tick()
-    assert timer.steps_per_sec == pytest.approx(1.5)  # 3 steps after the warm-up in 2 s
-    assert timer.voices_per_sec == pytest.approx(24.0)
