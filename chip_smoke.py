@@ -844,10 +844,12 @@ def phase_downstream(ckpt_dir: Path, probe) -> dict:
     need_fwd = 2 * N_STEPS + 2
     if launches["render_bwd"] < N_STEPS or launches["render_fwd"] < need_fwd:
         raise AssertionError(f"launches {launches}: need render_bwd >= {N_STEPS}, render_fwd >= {need_fwd}")
+    if task.synth_calls != {"replayed": N_STEPS - 1, "eager": 1}:
+        raise AssertionError(f"train step synths {task.synth_calls}: expected one eager, then replays")
     step_ms = _step_times(steps)
     log(f"[downstream] median step after the first: {step_ms:.1f} ms "
         f"({a2p.batch_size / step_ms * 1e3:.0f} voices/s); peak device memory {peak_gb:.1f} GB; "
-        f"launches {launches}")
+        f"launches {launches}; train step synths {task.synth_calls} ({task.synth_path})")
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb, "test": metrics}
 
 

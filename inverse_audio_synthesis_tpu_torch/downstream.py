@@ -9,7 +9,9 @@ as the port's ``pretrain`` CLI writes it), or warns and uses random towers; trai
 the head with checkpoints under ``<run_dir>/checkpoints/audio_to_params`` and
 resumes from them when rerun; then runs the test pass, reports each metric's mean
 and std over the test batches and writes the per-parameter MAE as a CSV. Runs on
-the CUDA device; ``platform=cpu`` runs on the CPU. ``steps_per_dispatch=k`` hands
+the CUDA device, where each train step after the first replays a CUDA graph
+of its synth (``train/downstream.py``; the counts are printed after training);
+``platform=cpu`` runs on the CPU. ``steps_per_dispatch=k`` hands
 the loop's dispatches of up to k steps to the task, which runs them in order;
 ``profile_dir=<dir>`` writes a ``torch.profiler`` trace of the whole fit there;
 the run config carries the git commit. Under ``torchrun`` each process
@@ -108,7 +110,8 @@ def app(cfg) -> int:
     state = task.init_state()
     if main:
         print(f"objective: {task.loss_kind}; render backward: {task.render_bwd}; render: "
-              f"{'fused' if task.fused_render else 'portable render_voice'}")
+              f"{'fused' if task.fused_render else 'portable render_voice'}; train step synth: "
+              f"{task.synth_path}")
 
     logger = make_logger(cfg, run_dir, "downstream")
     checkpoint = CheckpointManager(
@@ -128,6 +131,9 @@ def app(cfg) -> int:
     state, start = restore_latest(checkpoint, state, "downstream")
     try:
         state = fit_maybe_traced(cfg, trainer, state, start, device)
+        if main:
+            print(f"train step synths: {task.synth_calls['replayed']} graph replays, "
+                  f"{task.synth_calls['eager']} eager")
         if trainer.interrupted is not None:
             # no test pass over a half-trained head; rerunning resumes
             if main:

@@ -11,8 +11,9 @@ What a run returns, besides its metrics: rank 0's full (unsharded) parameters
 after its steps and the full gradient its first step handed the optimizer
 (every rank's per-tensor sums of the parameters, to show the replicas agree),
 the rank's rows of K1's audio and K2's cotangents for its first batch
-(``render_rows``), the launches of each kernel, the ``all_reduce`` calls and
-bytes per train step, and its peak device memory.
+(``render_rows``), the launches of each kernel (and downstream, the train
+step's synth replays and eager calls), the ``all_reduce`` calls and bytes per
+train step, and its peak device memory.
 """
 
 from __future__ import annotations
@@ -241,8 +242,8 @@ def downstream(overrides: Sequence[str], batch_num: int = 7, test_batch: int = 9
     step_s = time.perf_counter() - t0
     out["all_reduce_per_step"] = _per_step(1)
     test, _, _ = task.test_step(state, test_batch)
-    out.update(_counts(task.device), metrics=_numbers(m), test_init=_numbers(test_init),
-               test=_numbers(test), step_s=[step_s],
+    out.update(_counts(task.device), synth_calls=dict(task.synth_calls), metrics=_numbers(m),
+               test_init=_numbers(test_init), test=_numbers(test), step_s=[step_s],
                grads=_full_gradients(state.model, grads[0], task.mesh), **_params(state.model, task.mesh))
     if head_variables is not None:
         out["jax_after"] = _jax_tree(state.model, head_variables, task.mesh)

@@ -41,13 +41,33 @@ batch (a rank takes the overlap of its rows with them, which may be empty), and
 ``mel_chunk`` counts global rows: a rank evaluates its part of each global chunk
 under checkpointing, and the term is the sum of the parts' row-weighted means
 over the mel rows, the global mean.
+
+On a CUDA device the train step's synth (the parameter draw, this rank's rows,
+the controls and K1 on the task's noise) is one CUDA graph, captured at the
+second train step, after the first ran it eagerly (so the render library, the
+handles and the caches are made outside a capture), and replayed at every later
+train step: about 1,145 eager launches a step become the batch number's
+``fill_`` into the graph's 0-dim int64 buffer and one ``cudaGraphLaunch``. The
+batch key is folded in on the device (``synth/voice.py:sample_voice_params``
+with the task's ``_seed_key``); the synth draws no torch RNG and holds no
+collective, so the graph is valid under a process group too. Its outputs are
+the graph's static buffers, handed on without a copy (the audio is 722 MB at
+batch 1024): every consumer of one step's synth is enqueued on the stream before
+the next replay, and autograd saves neither (``torch.stack`` copies the true
+audio for the mel term; ``param_mse`` saves the difference). On the CPU the
+synth runs eagerly. ``synthesize`` itself always runs eagerly and returns fresh
+tensors, so the test pass, the export and the audio log, which keep audio across
+calls, never see the graph's buffers. ``synth_path`` names the path (logged when
+the task is built) and ``synth_calls`` counts the train step's replays and
+eager synths; ``ops/render.py:launch_counts`` counts K1's recorded launch at each
+replay (``count_replay``).
 """
 
 from __future__ import annotations
 
 import copy
 import logging
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +75,7 @@ import torch.utils.checkpoint
 
 from inverse_audio_synthesis_tpu_torch.models.audio_to_params import AudioRepresentationToParams
 from inverse_audio_synthesis_tpu_torch.models.layers import BatchNorm, Dropout
+from inverse_audio_synthesis_tpu_torch.ops import render as R
 from inverse_audio_synthesis_tpu_torch.ops.stft import METHODS as STFT_METHODS
 from inverse_audio_synthesis_tpu_torch.ops.stft import MelSpectrogram, mrstft_from_stats, mrstft_stats
 from inverse_audio_synthesis_tpu_torch.parallel.collectives import gather_rows, global_sum
@@ -78,6 +99,16 @@ log = logging.getLogger(__name__)
 
 LOSSES = ("embedding", "param_mse", "mel_l1", "combined")
 DEFAULT_LOSS_WEIGHTS = {"param_mse": 1.0, "mel_l1": 0.1}
+
+
+class _SynthGraph:
+    """A CUDA graph of ``synthesize`` on a device batch number: its input buffer
+    (0-dim int64), its outputs ((audio [B, 1, Ta], params01 [B, 78]), which each
+    replay overwrites) and the kernel launches it recorded."""
+
+    def __init__(self, graph, batch_num: torch.Tensor, out: Tuple[torch.Tensor, torch.Tensor],
+                 launches: Dict[str, int]):
+        self.graph, self.batch_num, self.out, self.launches = graph, batch_num, out, launches
 
 
 class AudioToParamsTask:
@@ -128,7 +159,15 @@ class AudioToParamsTask:
         self._noise = make_noise(
             self.synth, self.device, self.rows.stop - self.rows.start, self.rows.start
         )
+        self._seed_key = prng.prng_key(self.synth.seed).to(self.device)
         self.fused_render = fused_render_available(self.synth)
+        # how train_step runs its synth, fixed here (the module docstring)
+        self._graph_synth = self.device.type == "cuda"
+        self.synth_path = ("cuda graph: captured after the first eager synth, replayed each train step"
+                           if self._graph_synth else "eager: a CPU run")
+        self.synth_calls = {"replayed": 0, "eager": 0}
+        self._synth_graph: Optional[_SynthGraph] = None
+        log.info("train step synth path: %s", self.synth_path)
 
         # every mel.method is the same float32 transform here (ops/stft.py), so the
         # training and test terms share one; test_method is checked all the same
@@ -205,12 +244,40 @@ class AudioToParamsTask:
     def _render(self, params01: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         return render_voice_auto(params01.float(), self.synth, noise, bwd=self.render_bwd)
 
-    def synthesize(self, batch_num: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(audio [B, 1, Ta], params01 [B, 78]) of this rank's rows for a batch number."""
-        params01 = sample_voice_params(batch_num, self.synth, self.device)[self.rows]
+    def synthesize(self, batch_num) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(audio [B, 1, Ta], params01 [B, 78]) of this rank's rows for a batch
+        number (an int, or an int64 tensor on the device), fresh tensors the
+        caller may keep."""
+        params01 = sample_voice_params(batch_num, self.synth, self.device, self._seed_key)[self.rows]
         with torch.no_grad():
             audio = render_voice_auto(params01, self.synth, noise=self._noise)
         return audio[:, None, :], params01
+
+    def _train_synth(self, batch_num: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The train step's ``synthesize(batch_num)``: eager on the CPU and at the
+        first train step, else a replay of its CUDA graph, whose outputs are the
+        graph's buffers (the next replay overwrites them)."""
+        if not self._graph_synth or not self.synth_calls["eager"]:
+            self.synth_calls["eager"] += 1
+            return self.synthesize(batch_num)
+        graph = self._synth_graph or self._capture_synth()
+        graph.batch_num.fill_(batch_num)
+        graph.graph.replay()
+        R.count_replay(graph.launches)
+        self.synth_calls["replayed"] += 1
+        return graph.out
+
+    def _capture_synth(self) -> _SynthGraph:
+        """Capture ``synthesize`` on a device batch number into a CUDA graph
+        (nothing runs; it runs at each replay)."""
+        batch_num = torch.zeros((), dtype=torch.int64, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        with span("step/graph_capture"), R.recording_launches() as launches, torch.cuda.graph(graph):
+            out = self.synthesize(batch_num)
+        self._synth_graph = _SynthGraph(graph, batch_num, out, dict(launches))
+        log.info("captured the train step's synth as a CUDA graph (%s kernel launches recorded)",
+                 dict(launches))
+        return self._synth_graph
 
     def _shared(self, head, audio, params01, with_pred_emb: bool):
         """(pred_params, repr_loss or None, frozen_loss): the frozen VICReg loss of
@@ -278,7 +345,7 @@ class AudioToParamsTask:
         head = state.model
         head.train()
         with span("step/synth"):
-            audio, params01 = self.synthesize(batch_num)
+            audio, params01 = self._train_synth(batch_num)
         with span("step/forward"):
             pred_params, repr_loss, frozen_loss = self._shared(
                 head, audio, params01, with_pred_emb=self._uses_embedding()
@@ -317,9 +384,13 @@ class AudioToParamsTask:
 
     def train_step_multi(self, state: TrainState, batch_nums) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """len(batch_nums) train steps in order through ``train_step`` -> (state,
-        metrics stacked [k]). No CUDA graph here: the batch-1024 step keeps the
-        card busy (PERF.md), and its cuFFT plans and ``mel_chunk`` recomputation
-        would have to be made capture-safe for nothing."""
+        metrics stacked [k]). Only the synth is a CUDA graph (the module
+        docstring). Eager, the batch-1024 step left the card idle 16-35% of a
+        traced window (PERF.md): the synth's launches held 97% of that idle with
+        the embedding objective, the backward's 48% with ``combined``. A graph of
+        the whole step would also take the backward's, but the head's dropout and
+        BatchNorm, ``autograd.grad`` through K2, the STFT stack and ``mel_chunk``'s
+        recomputation would all have to be made capture-safe first."""
         rows = []
         for n in batch_nums:
             state, m = self.train_step(state, n)

@@ -27,8 +27,10 @@ the step takes the distributed code path with its collectives as real calls.
 ``train_step_multi``, which on the card replays one CUDA graph of K steps
 (captured in the warm-up), and adds the host's launch calls per step, kernels
 (``cudaLaunchKernel``) and graphs (``cudaGraphLaunch``), to the figures.
-Prints one JSON line last. Needs a CUDA device; prints "not measured" for the
-profiler numbers if the profiler records no device time.
+With ``--task downstream`` the train step's synth is a CUDA graph after the
+first step (``train/downstream.py``); the JSON line counts its replays and eager
+calls (``synth_calls``). Prints one JSON line last. Needs a CUDA device; prints
+"not measured" for the profiler numbers if the profiler records no device time.
 """
 
 from __future__ import annotations
@@ -235,6 +237,8 @@ def main() -> int:
         "host_ms_per_step_by_op": {key: ms for ms, _, key in host[:12]},
         "peak_memory_gb": peak_gb,
     }
+    if args.task == "downstream":  # the train step's synth: graph replays and eager calls
+        result["synth_calls"] = dict(task.synth_calls)
     print(f"device busy {busy_ms:.2f} ms per step ({prof_step_ms:.2f} ms profiled, "
           f"{step_ms:.2f} ms unprofiled); "
           f"{launches:.0f} kernel launches per step; host launch calls per step "
