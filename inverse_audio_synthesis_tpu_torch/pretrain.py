@@ -107,7 +107,8 @@ def _app(cfg) -> int:
     if main:
         name = torch.cuda.get_device_name(task.device) if task.device.type == "cuda" else "cpu"
         print(f"device: {task.device} ({name}); mesh data={task.mesh.data} model={task.mesh.model}; "
-              f"render: {'fused' if task.fused_render else 'portable render_voice'}")
+              f"render: {'fused' if task.fused_render else 'portable render_voice'}; "
+              f"audio tower: {task.audio_tower}")
         print(summarize_params(state.model, max_depth=2, mesh=task.mesh))
 
     run_dir = Path(cfg.get("run_dir", "runs"))

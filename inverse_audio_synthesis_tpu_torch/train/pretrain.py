@@ -56,6 +56,7 @@ Config keys honoured: precision, grads_bf16, bn_bf16, weights_bf16,
 detect_anomaly (the graph path's choice; the CLI turns anomaly mode on),
 mesh.*, param_embed.*, vicreg.* (batch size, projector spec, loss coefficients,
 optimizer, scheduler, vision_weights_path, pretrained_vision_model), image.*,
+audio_tower.* (``build_audio_tower``; a tree without it builds MobileNetV3-Small),
 torchsynth.*, seed. ``steps_per_dispatch`` is the loop's (``train/loop.py``).
 """
 
@@ -69,6 +70,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from inverse_audio_synthesis_tpu_torch.models.ast import AST
 from inverse_audio_synthesis_tpu_torch.models.audioembed import AudioEmbedding
 from inverse_audio_synthesis_tpu_torch.models.torch_import import (
     load_into_audio_embedding,
@@ -144,17 +146,40 @@ def synth_config_from_cfg(cfg, batch_size: int) -> SynthConfig:
     return scfg
 
 
+def audio_tower_name(cfg) -> str:
+    """``audio_tower.name``; a tree without the key builds the MobileNetV3-Small tower."""
+    return (cfg.get("audio_tower") or {}).get("name", "mobilenetv3_small")
+
+
+def build_audio_tower(cfg, bn_dtype=torch.float32, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The audio tower ``audio_tower.name`` selects: ``mobilenetv3_small`` (the PQMF
+    pseudo-image through MobileNetV3-Small, ``models/audioembed.py``) or ``ast``
+    (the Kaldi fbank through the Audio Spectrogram Transformer of
+    ``audio_tower.ast``, ``models/ast.py``)."""
+    name = audio_tower_name(cfg)
+    if name == "mobilenetv3_small":
+        return AudioEmbedding(dim=cfg.dim, image_size=(cfg.image.height, cfg.image.width),
+                              bn_dtype=bn_dtype, generator=generator)
+    if name == "ast":
+        return AST(dim=cfg.dim, sample_rate=cfg.torchsynth.rate, generator=generator,
+                   **dict(cfg.audio_tower.get("ast") or {}))
+    raise ValueError(f"audio_tower.name={name!r}: the port builds mobilenetv3_small or ast")
+
+
+def describe_audio_tower(tower: nn.Module) -> str:
+    """The audio tower's name and counters, for the log."""
+    if isinstance(tower, AST):
+        backends = ", ".join(b.name for b in tower.sdpa_backends)
+        return f"ast ({tower.tokens_per_voice} tokens a voice; SDPA backends {backends})"
+    return "mobilenetv3_small"
+
+
 def build_vicreg_model(cfg, generator: Optional[torch.Generator] = None) -> VICRegModule:
     bf16 = cfg.get("precision") == "bf16"
     # bn_bf16: BatchNorm's normalized output in bf16; its statistics stay float32
     bn_dtype = torch.bfloat16 if bf16 and cfg.get("bn_bf16", False) else torch.float32
     return VICRegModule(
-        backbone_audio=AudioEmbedding(
-            dim=cfg.dim,
-            image_size=(cfg.image.height, cfg.image.width),
-            bn_dtype=bn_dtype,
-            generator=generator,
-        ),
+        backbone_audio=build_audio_tower(cfg, bn_dtype, generator),
         backbone_param=ParamEmbed(
             nparams=cfg.nparams,
             dim=cfg.dim,
@@ -223,6 +248,7 @@ class VicregPretrainTask:
         self._use_graphs = eager is None
         self.dispatch_path = ("cuda graph: one graph per dispatch length, replayed" if eager is None
                               else f"eager: in order through train_step ({eager})")
+        self.audio_tower = audio_tower_name(cfg)  # with its counters once init_state builds it
         self._graphs: Dict[int, _StepGraph] = {}
         self._capturing = False
         self._eager_steps = 0
@@ -235,6 +261,7 @@ class VicregPretrainTask:
         with torch.device(self.device):
             model = build_vicreg_model(self.cfg, generator=gen)
         self._maybe_load_vision_weights(model)
+        self.audio_tower = describe_audio_tower(model.backbone_audio)
         if self._weights_bf16:
             # bf16 storage of the >=2-D weights; 1-D ones (biases, BatchNorm) stay
             # float32, as the JAX package keeps them
@@ -269,9 +296,15 @@ class VicregPretrainTask:
         """Load a torchvision trunk into the audio tower when
         ``vicreg.vision_weights_path`` is set (the reference trains from ImageNet
         weights); warn once per process when ``pretrained_vision_model`` asks for
-        them and no path is set."""
+        them and no path is set. Another audio tower refuses a path (the file is a
+        MobileNetV3-Small trunk) and warns of nothing."""
         global _WARNED_RANDOM_INIT
         path = self.cfg.vicreg.get("vision_weights_path")
+        if audio_tower_name(self.cfg) != "mobilenetv3_small":
+            if path:
+                raise ValueError(f"vicreg.vision_weights_path={path!r} is a MobileNetV3-Small trunk; the "
+                                 f"{audio_tower_name(self.cfg)} audio tower cannot load it")
+            return
         if path:
             load_into_audio_embedding(model, load_vision_weights_file(path))
             log.info("loaded pretrained vision trunk from %s", path)
@@ -345,7 +378,7 @@ class VicregPretrainTask:
         filters) happens outside a capture."""
         if not self._dispatch_logged:
             self._dispatch_logged = True
-            log.info("steps_per_dispatch path: %s", self.dispatch_path)
+            log.info("steps_per_dispatch path: %s; audio tower: %s", self.dispatch_path, self.audio_tower)
         if not self._use_graphs or not self._eager_steps:
             rows = []
             for n in batch_nums:

@@ -351,10 +351,14 @@ def test_unsupported_keys_are_refused(override):
 @pytest.mark.parametrize("overrides", [[], TINY, ["vicreg=fast", "+extra.key=3"]])
 def test_config_and_split_copies_match_jax(overrides):
     """The port's copies of the config tree, its loader and the batch-number split
-    compose the same keys and draw the same batch numbers as the JAX package's."""
+    compose the same keys and draw the same batch numbers as the JAX package's.
+    ``audio_tower`` is the port's own key (the AST tower exists only in the
+    port); its default builds the tower the JAX package has."""
     from inverse_audio_synthesis_tpu.train.runsetup import BatchNumberSplit as JSplit
 
-    assert load_config(overrides=overrides).to_dict() == jload_config(overrides=overrides).to_dict()
+    tree = load_config(overrides=overrides).to_dict()
+    assert tree.pop("audio_tower")["name"] == "mobilenetv3_small"
+    assert tree == jload_config(overrides=overrides).to_dict()
     with pytest.raises(KeyError):
         load_config(overrides=["vicreg.batchsize=64"])
     split, jsplit = BatchNumberSplit(50_000_000, 1, 42), JSplit(50_000_000, 1, 42)
