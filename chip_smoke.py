@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
-  1. device and build: the card's name and power limit, then both render kernels
-     built with nvcc from csrc/render_fwd.cu and csrc/render_bwd.cu (sm_90a), one
-     nvcc process each, started together; each kernel's registers, shared memory
+  1. device and build: the card's name and power limit, then the kernels built
+     with nvcc from csrc/render_fwd.cu, csrc/render_bwd.cu and csrc/lars.cu
+     (sm_90a), one nvcc process each, started together; each render kernel's registers, shared memory
      and spills (ptxas), resident blocks per SM and instructions per sample slot
      (cuobjdump -sass) at the 4 s voices' ratio; the
      card's exhaustive check that the kernels' division, remainder and floor
@@ -34,10 +34,19 @@ Phases, each printing its own lines:
      (the same bounds, exact-tie entries left out: there autograd of a clamp
      passes the gradient and the kernel's strict masks do not), and the times of
      both beside the bound;
+  3b. the LARS step (csrc/lars.cu, three launches) at the parameter lists of
+     vicreg-full and vicreg-ast (random float32 weights and gradients, the full
+     config's LARS with grads_bf16): the kernels' registers and blocks per SM;
+     the norms within 2e-6 of the plain norm and fold stages' (ops/lars.py),
+     the count advanced by one and nothing counted non-finite, the update
+     bit-identical to the plain stages' given the kernel's norms; one step's time through the kernels and through the plain
+     stages, each replayed as a CUDA graph, beside the two-pass bound (20 bytes
+     a parameter), L2 flushed;
   4. four VICReg training steps of the full default config (vicreg=full,
      precision bf16) through Trainer.fit, then one validation step, with the
-     launch counters reset just before and read just after; the run writes a
-     VICReg checkpoint to a temporary directory;
+     launch counters reset just before and read just after (LARS through its
+     kernels: three launches a step); the run writes a VICReg checkpoint to a
+     temporary directory;
   5. steps_per_dispatch and the rest of the training surface, at the full
      default config: (a) graph parity, f32 with TF32 off and dropout 0.1: 8
      steps with steps_per_dispatch=1 against 8 with 4 and log_every 4
@@ -293,6 +302,127 @@ def phase_render() -> dict:
     return result
 
 
+LARS_MODELS = {"vicreg-full": ["vicreg=full"], "vicreg-ast": ["vicreg=full", "audio_tower.name=ast"]}
+LARS_BYTES_PER_PARAM = 20  # two passes over float32 g and w: read g, w; read g, w, write w
+
+
+def _lars_ptxas(log_text: str) -> dict:
+    """Registers and spill stores of each lars_* kernel (by its table's capacity)
+    in nvcc's -Xptxas -v output."""
+    entry, found = None, {}
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(lars_[a-z]+)_kernel(?:ILi(\d+)E)?", m.group(1))
+            entry = None if k is None else k[1] + (f"<{k[2]}>" if k[2] else "")
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            found.setdefault(entry, {})["spill_stores"] = int(m[1])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.setdefault(entry, {})["registers"] = int(m[1])
+    return found
+
+
+def _graphed(fn):
+    """``fn`` (run once eagerly first) captured into a CUDA graph; its launches
+    are recorded, not counted."""
+    import torch
+
+    from inverse_audio_synthesis_tpu_torch.ops import launches
+
+    fn()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with launches.recording_launches(), torch.cuda.graph(graph, stream=stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    return graph
+
+
+def phase_lars() -> dict:
+    """The LARS step of csrc/lars.cu at the parameter lists of vicreg-full and
+    vicreg-ast (the port's models built on the meta device; random float32 weights
+    and gradients; the full config's LARS, schedule and grads_bf16): the kernels'
+    norms within 2e-6 of the plain norm and fold stages' on the same gradients, the
+    count advanced by one and nothing counted non-finite, the update bit for bit
+    the plain stages' given the kernel's norms; then one step's
+    device time through the kernels (three launches), through the plain stages on
+    the card, each timed as a CUDA graph's replay, and the two-pass bound, 20
+    bytes a parameter at the memory rate."""
+    import torch
+
+    from inverse_audio_synthesis_tpu_torch.ops import build
+    from inverse_audio_synthesis_tpu_torch.ops import lars as L
+    from inverse_audio_synthesis_tpu_torch.train.optim import make_optimizer, schedule_value
+    from inverse_audio_synthesis_tpu_torch.train.pretrain import build_vicreg_model
+    from inverse_audio_synthesis_tpu_torch.utils.config import load_config
+
+    result = {"ptxas": _lars_ptxas(build.build_libraries(("lars",))["lars"].with_suffix(".log").read_text()),
+              "blocks_per_sm": {"norm": L.kernel_occupancy(False), "update": L.kernel_occupancy(True)}}
+    log(f"[lars] ptxas {result['ptxas']}; blocks per SM {result['blocks_per_sm']}")
+    for model, overrides in LARS_MODELS.items():
+        cfg = load_config(overrides=overrides)
+        with torch.device("meta"):
+            shapes = [(n, p.shape) for n, p in build_vicreg_model(cfg).named_parameters()]
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        params = [torch.randn(s, generator=gen, device="cuda") * 0.05 for _, s in shapes]
+        grads = [torch.randn(s, generator=gen, device="cuda") * 1e-3 for _, s in shapes]
+        copy = [p.clone() for p in params]
+        names = [n for n, _ in shapes]
+
+        def make(ps):
+            opt, schedule = make_optimizer(cfg.vicreg.optim, cfg.vicreg.batch_size, ps, cfg.vicreg.scheduler,
+                                           names=names, grads_bf16=True)
+            opt.count.fill_(500)  # mid warm-up: a learning rate above 0
+            return opt, schedule
+
+        opt, schedule = make(params)
+        plain, _ = make(copy)
+        lr = schedule_value(schedule, opt.count)
+        L.reset_launch_counts()
+        opt.step(grads)
+        # the norm pass and the fold against the plain stages on the same gradients
+        want = L.fold_plain(plain._plan, L.norm_partials_plain(plain._plan, grads)).double()
+        norm_err = float(((opt._plan.norms.double() - want).abs() / want.clamp_min(1e-30)).max())
+        norms_ok = bool(((opt._plan.norms.double() - want).abs() <= 2e-6 * want).all())
+        local_lr, wdc, neglr, ok = L.factors_plain(plain._plan, opt._plan.norms, lr)
+        for p, u in zip(copy, L.updates_plain(plain._plan, grads, local_lr, wdc, neglr, ok)):
+            p.add_(u)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(params, copy))
+        launched = dict(L.launch_counts)
+        count, notfinite = int(opt.count), int(opt.total_notfinite)
+        log(f"[lars] {model}: {len(params)} tensors, {opt._plan.n_chunks} chunks; norms vs the plain stages' "
+            f"max rel {norm_err:.2e} (limit 2e-6); kernel vs plain update bit-identical given its norms: "
+            f"{same}; count 500 -> {count}, non-finite {notfinite}; launches {launched}")
+        if (not same or not norms_ok or count != 501 or notfinite != 0
+                or launched != {"lars_norm": 1, "lars_fold": 1, "lars_update": 1} or opt.path != "kernel"):
+            raise AssertionError(f"the LARS kernels disagree with their plain stages at {model}")
+        del copy, plain
+        n = sum(p.numel() for p in params)
+
+        def plain_step():
+            for p, u in zip(opt.params, opt.updates(grads)):
+                p.add_(u)
+
+        # each step as a CUDA graph's replay, as the pretraining cells run it: the
+        # device's time, without the host's between the launches
+        ms = cuda_time_ms(_graphed(lambda: opt.step(grads)).replay)
+        plain_ms = cuda_time_ms(_graphed(plain_step).replay, reps=10, warmup=2)
+        b_ms, _ = bound_ms(LARS_BYTES_PER_PARAM * n, 0.0)
+        log(f"[lars] {model}: {n} parameters; kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
+            f"bound {b_ms:.4f} ms (bytes, 20 a parameter), {100 * b_ms / ms:.1f}% of the bound")
+        result[model] = dict(params=n, tensors=len(params), chunks=opt._plan.n_chunks, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by="bytes", max_abs_err=0.0, norm_rel_err=norm_err)
+        del opt, params, grads
+        torch.cuda.empty_cache()
+    return result
+
+
 def _voice_rel_rms(ref, x):
     """Per voice (row) rms(x - ref) / rms(ref), numpy."""
     import numpy as np
@@ -468,6 +598,7 @@ def _step_times(steps) -> float:
 def phase_train(ckpt_dir: Path) -> dict:
     import torch
 
+    from inverse_audio_synthesis_tpu_torch.ops import lars as L
     from inverse_audio_synthesis_tpu_torch.ops import render as R
     from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
     from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
@@ -493,11 +624,13 @@ def phase_train(ckpt_dir: Path) -> dict:
                       limit_train_batches=N_STEPS, log_every=1)
 
     R.reset_launch_counts()
+    L.reset_launch_counts()
     state = trainer.fit(state)
     val = task.val_step(state, split.val_batch_num(0))
     val = {k: float(v) for k, v in val.items()}
     torch.cuda.synchronize()
     launches = dict(R.launch_counts)
+    lars_launches = dict(L.launch_counts)
 
     steps = [r for r in logger.records if "vicreg/train/loss" in r]
     for r in steps:
@@ -517,15 +650,17 @@ def phase_train(ckpt_dir: Path) -> dict:
     if launches["render_fwd"] < N_STEPS + 1:
         raise AssertionError(f"render kernel launched {launches['render_fwd']} times in "
                              f"{N_STEPS} train steps and one val step")
+    if state.optimizer.path != "kernel" or lars_launches != dict.fromkeys(L.launch_counts, N_STEPS):
+        raise AssertionError(f"LARS took the {state.optimizer.path} path, launches {lars_launches}")
     if checkpoint.latest_step() != N_STEPS:
         raise AssertionError(f"expected a checkpoint of step {N_STEPS}, found {checkpoint.latest_step()}")
     probe = state.model.projector.lin_final.weight.detach().float().cpu()
     step_ms = _step_times(steps)
-    log(f"[train] median step after the first: {step_ms:.1f} ms; launches {launches}; "
+    log(f"[train] median step after the first: {step_ms:.1f} ms; launches {launches}, LARS {lars_launches}; "
         f"checkpoint step {checkpoint.latest_step()} in {checkpoint.dir}")
     del task, state, trainer
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms, "probe": probe}
+    return {"launches": launches, "lars_launches": lars_launches, "step_ms": step_ms, "probe": probe}
 
 
 DISPATCH_STEPS = 8  # (a): 8 steps with k = 1 against k = 4 and log_every 4: dispatches 1, 3, 4
@@ -1270,6 +1405,7 @@ def main() -> int:
         return 2
     t_run = time.time()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from inverse_audio_synthesis_tpu_torch.ops import build
     from inverse_audio_synthesis_tpu_torch.ops import render as R
 
     smi = subprocess.run(
@@ -1278,11 +1414,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"[device] {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
     t0 = time.time()
-    libs = R.build_render_libraries()
+    libs = build.build_libraries()
     log(f"[build] {', '.join(p.name for p in libs.values())} in {time.time() - t0:.1f} s")
     run = R.run_length(100)  # the 4 s voices' ratio, 176400 / 1764
     resources = {}
-    for name, lib in libs.items():
+    for name in ("render_fwd", "render_bwd"):
+        lib = libs[name]
         report = R.ptxas_report(lib.with_suffix(".log").read_text(), run)
         resources[name] = {**report, "blocks_per_sm": R.kernel_occupancy(name),
                            **sass_per_slot(lib, run)}
@@ -1298,6 +1435,7 @@ def main() -> int:
     render = phase_render()
     golden = phase_golden()
     render_bwd = phase_render_bwd()
+    lars = phase_lars()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         ckpt_dir = Path(tmp) / "vicreg"
         train = phase_train(ckpt_dir)
@@ -1348,6 +1486,12 @@ def main() -> int:
     kernels[0]["pretrain_step_ms_by_steps_per_dispatch"] = {
         str(k): {key: v[key] for key in ("step_ms", "host_launch_calls_per_step", "device_idle_share", "peak_gb")}
         for k, v in dispatch["timing"].items()}
+    kernels.append({
+        "name": "lars", "route": "cuda", "source": "inverse_audio_synthesis_tpu_torch/csrc/lars.cu",
+        "replaces": None, "launches_by_path": {"vicreg_pretrain": train["lars_launches"]},
+        "resources": {"ptxas": lars["ptxas"], "blocks_per_sm": lars["blocks_per_sm"]},
+        "by_model": {m: {**lars[m], "share_of_bound": lars[m]["bound_ms"] / lars[m]["ms"]} for m in LARS_MODELS},
+    })
     kernels[1]["downstream_step_ms"] = downstream["step_ms"]
     kernels[0]["golden_probes"] = golden["probes"]
     kernels[0]["retrieval"] = {k: retrieval[k] for k in ("batch_ms", "candidates_per_s", "k1_share", "noise_ms")}

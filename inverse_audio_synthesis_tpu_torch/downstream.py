@@ -111,7 +111,7 @@ def app(cfg) -> int:
     if main:
         print(f"objective: {task.loss_kind}; render backward: {task.render_bwd}; render: "
               f"{'fused' if task.fused_render else 'portable render_voice'}; train step synth: "
-              f"{task.synth_path}")
+              f"{task.synth_path}; optimizer: {state.optimizer.path}")
 
     logger = make_logger(cfg, run_dir, "downstream")
     checkpoint = CheckpointManager(

@@ -11,7 +11,8 @@ JAX package's ``render_audio_fused_bwd`` does.
 - For CUDA tensors the forward launches the hand-written kernel in
   ``csrc/render_fwd.cu`` (replacing the TPU kernel ``ops/pallas/render.py:_kernel``)
   and the backward the one in ``csrc/render_bwd.cu`` (replacing ``_bwd_kernel``).
-  Both are built with nvcc for sm_90a at first use and loaded with ctypes. Neither
+  Both are built with nvcc for sm_90a at first use (``ops/build.py``) and loaded
+  with ctypes. Neither
   falls back.
 - For CPU tensors they run ``render_audio_plain`` and ``render_audio_bwd_plain``:
   the same arithmetic in plain torch, in the kernels' association (each thread's
@@ -24,22 +25,16 @@ at the top of its CUDA source; PERF.md has their times beside their bounds.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import hashlib
 import math
-import os
 import re
-import shutil
-import subprocess
 import threading
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from inverse_audio_synthesis_tpu_torch.ops import build, launches
 from inverse_audio_synthesis_tpu_torch.ops.math_ops import (
     exp2_accurate,
     sincos_fast,
@@ -53,14 +48,6 @@ MAX_RUN = 16  # samples per thread at most: ratio <= LANES * MAX_RUN
 _WARP = 32
 _LN2 = math.log(2.0)
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"render_fwd": CSRC / "render_fwd.cu", "render_bwd": CSRC / "render_bwd.cu"}
-HEADERS = (CSRC / "render_common.cuh",)
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "--fmad=false", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each library's launch function (pointers, then batch, tc, ratio,
 # the float 2pi/sr, and the stream)
@@ -69,11 +56,9 @@ _LAUNCH_ARGS = {
     "render_bwd": [_PTR] * 10 + [_INT] * 3 + [_F32, _PTR],
 }
 
-# Launches of each CUDA kernel group, counted by the wrapper where it launches.
-launch_counts = {"render_fwd": 0, "render_bwd": 0}
-# While a CUDA graph is captured (``recording_launches``), the launches that the
-# graph records, which run at each replay and not at the call.
-_recording: Optional[Dict[str, int]] = None
+# Launches of each CUDA kernel, counted by the wrapper where it launches (graph
+# captures and replays: ``ops/launches.py``).
+launch_counts = launches.counter("render_fwd", "render_bwd")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -82,28 +67,6 @@ _lib_lock = threading.Lock()
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
-
-
-@contextlib.contextmanager
-def recording_launches() -> Iterator[Dict[str, int]]:
-    """Wrap the capture of a CUDA graph: the kernels launched inside are recorded
-    into the graph and run at each replay, so they are counted into the dict
-    yielded and not into ``launch_counts``; ``count_replay`` adds them there at
-    each replay."""
-    global _recording
-    if _recording is not None:
-        raise RuntimeError("a CUDA graph capture is already recording launches")
-    _recording = dict.fromkeys(launch_counts, 0)
-    try:
-        yield _recording
-    finally:
-        _recording = None
-
-
-def count_replay(recorded: Dict[str, int]) -> None:
-    """One replay of a graph whose capture recorded ``recorded`` launches."""
-    for k, n in recorded.items():
-        launch_counts[k] += n
 
 
 def fused_render_supported(batch: int, audio_len: int, control_len: int) -> bool:
@@ -123,54 +86,10 @@ def dphi_scale(sample_rate: float) -> float:
 # -- build and bind -----------------------------------------------------------------
 
 
-def _library_path(name: str) -> Path:
-    """build/kernels/<name>-<hash>.so, the hash over the source, the shared header
-    and the flags, so an edit rebuilds."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name], *HEADERS):
-        h.update(f.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-
-
-def _nvcc(nvcc: str, name: str, out: Path) -> None:
-    """Build ``csrc/<name>.cu`` into ``out`` (written under a temporary name, then
-    renamed), keeping nvcc's output beside it as ``<out>.log``."""
-    tmp = out.with_name(f"{out.name}.tmp-{os.getpid()}")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc {SOURCES[name].name} failed ({proc.returncode}):\n{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, out)
-
-
-def build_render_libraries(names=tuple(SOURCES)) -> Dict[str, Path]:
-    """Compile each named ``csrc/<name>.cu`` with nvcc into a shared library under
-    ``build/kernels``, one nvcc process per source, all started together, and
-    return their paths. A library already built from the same sources is reused.
-    nvcc's output (ptxas register and shared-memory report) is kept beside each
-    as ``<name>.log``."""
-    out = {name: _library_path(name) for name in names}
-    todo = [name for name in names if not out[name].exists()]
-    if not todo:
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the render kernels are built on a machine with the CUDA toolkit")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(todo)) as pool:
-        for job in [pool.submit(_nvcc, nvcc, name, out[name]) for name in todo]:
-            job.result()
-    return out
-
-
 def _library(name: str) -> ctypes.CDLL:
     with _lib_lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(build_render_libraries((name,))[name]))
+            lib = ctypes.CDLL(str(build.build_libraries((name,))[name]))
             fn = getattr(lib, f"{name}_launch")
             fn.argtypes = _LAUNCH_ARGS[name]
             fn.restype = ctypes.c_int
@@ -251,7 +170,7 @@ def _launch(name: str, *args) -> None:
         err = getattr(lib, f"{name}_launch")(*ptrs, stream)
     if err != 0:
         raise RuntimeError(f"{name}_launch failed with CUDA error {err}")
-    (launch_counts if _recording is None else _recording)[name] += 1
+    launches.count(name)
 
 
 def _render_cuda(routed, scalars, noise, sample_rate: float, save_phase: bool):

@@ -60,7 +60,7 @@ tensors, so the test pass, the export and the audio log, which keep audio across
 calls, never see the graph's buffers. ``synth_path`` names the path (logged when
 the task is built) and ``synth_calls`` counts the train step's replays and
 eager synths; ``ops/render.py:launch_counts`` counts K1's recorded launch at each
-replay (``count_replay``).
+replay (``ops/launches.py:count_replay``).
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ import torch.utils.checkpoint
 
 from inverse_audio_synthesis_tpu_torch.models.audio_to_params import AudioRepresentationToParams
 from inverse_audio_synthesis_tpu_torch.models.layers import BatchNorm, Dropout
-from inverse_audio_synthesis_tpu_torch.ops import render as R
+from inverse_audio_synthesis_tpu_torch.ops import launches
 from inverse_audio_synthesis_tpu_torch.ops.stft import METHODS as STFT_METHODS
 from inverse_audio_synthesis_tpu_torch.ops.stft import MelSpectrogram, mrstft_from_stats, mrstft_stats
 from inverse_audio_synthesis_tpu_torch.parallel.collectives import gather_rows, global_sum
@@ -221,7 +221,7 @@ class AudioToParamsTask:
                 m.generator = dropout_gen
         optimizer, self.schedule = make_optimizer(
             a2p.optim, a2p.batch_size, list(head.parameters()), a2p.get("scheduler"),
-            mesh=self.mesh,
+            mesh=self.mesh, grads_bf16=self._grads_bf16,
         )
         return TrainState(0, head, optimizer)
 
@@ -263,7 +263,7 @@ class AudioToParamsTask:
         graph = self._synth_graph or self._capture_synth()
         graph.batch_num.fill_(batch_num)
         graph.graph.replay()
-        R.count_replay(graph.launches)
+        launches.count_replay(graph.launches)
         self.synth_calls["replayed"] += 1
         return graph.out
 
@@ -272,11 +272,11 @@ class AudioToParamsTask:
         (nothing runs; it runs at each replay)."""
         batch_num = torch.zeros((), dtype=torch.int64, device=self.device)
         graph = torch.cuda.CUDAGraph()
-        with span("step/graph_capture"), R.recording_launches() as launches, torch.cuda.graph(graph):
+        with span("step/graph_capture"), launches.recording_launches() as recorded, torch.cuda.graph(graph):
             out = self.synthesize(batch_num)
-        self._synth_graph = _SynthGraph(graph, batch_num, out, dict(launches))
+        self._synth_graph = _SynthGraph(graph, batch_num, out, dict(recorded))
         log.info("captured the train step's synth as a CUDA graph (%s kernel launches recorded)",
-                 dict(launches))
+                 dict(recorded))
         return self._synth_graph
 
     def _shared(self, head, audio, params01, with_pred_emb: bool):
@@ -370,8 +370,6 @@ class AudioToParamsTask:
             params = state.optimizer.params
             grads = reduce_gradients(torch.autograd.grad(loss, params), self.mesh)
         with span("step/optimizer"):
-            if self._grads_bf16:
-                grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
             state.optimizer.step(list(grads))
         state.step += 1
         metrics = {

@@ -40,8 +40,20 @@ holds their addresses). ``state_dict`` names per-parameter state by the
 parameter's name (``master.<name>``, ``trace.<name>``), so a checkpoint under
 tensor parallelism gathers and splits it as it does the model's.
 
-Plain torch, one small group of ops per parameter tensor; the norms go through
-``torch._foreach_norm``.
+``grads_bf16`` (the config key) is each optimizer's: the gradients of >= 2 dims
+are rounded to bf16 before the step uses them, as the JAX package casts them.
+
+How a step runs (``path``): on a CUDA device ``FusedLars`` takes the whole step
+in three launches of the hand-written kernels of ``csrc/lars.cu``
+(``ops/lars.py``): the norm pass over every tensor's chunks, a fold in one block
+(the norms, the guard, each tensor's trust ratio, the count), and the update pass,
+which rounds a gradient to bf16 in registers where ``grads_bf16`` asks for it;
+``ops/lars.py:launch_counts`` counts the launches (those of a graph per replay).
+On the CPU it takes each tensor's norms by ``torch._foreach_norm`` and the plain
+stages' factors and update. There is no fallback: a CUDA gradient the kernels do
+not take raises. ``MomentumLars`` and
+``Sgd`` are plain torch on every device, one small group of ops per tensor, their
+norms through ``torch._foreach_norm``.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ import torch
 import torch.distributed as dist
 
 from inverse_audio_synthesis_tpu_torch.models.vicreg import exclude_bias_and_norm as lars_mask
+from inverse_audio_synthesis_tpu_torch.ops import lars as L
 from inverse_audio_synthesis_tpu_torch.parallel.collectives import all_reduce_
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
@@ -148,9 +161,10 @@ class _Guarded:
     and the state dict."""
 
     buffers: Tuple[str, ...] = ()
+    path = "plain"  # how a step runs: "plain" torch or the "kernel"s of csrc/lars.cu
 
     def __init__(self, params: Iterable[torch.Tensor], learning_rate: Schedule, mesh=None,
-                 names: Optional[Sequence[str]] = None):
+                 names: Optional[Sequence[str]] = None, grads_bf16: bool = False):
         self.params: List[torch.Tensor] = list(params)
         if not self.params:
             raise ValueError(f"{type(self).__name__} needs at least one parameter")
@@ -159,6 +173,7 @@ class _Guarded:
             raise ValueError(f"{len(self.names)} names for {len(self.params)} parameters")
         self.learning_rate = learning_rate
         self.mesh = mesh
+        self.grads_bf16 = bool(grads_bf16)
         device = self.params[0].device
         self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.total_notfinite = torch.zeros((), dtype=torch.int32, device=device)
@@ -171,8 +186,15 @@ class _Guarded:
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
-        """Apply one update for ``grads`` (one per parameter) in place: the
-        subclass's ``updates``, which also advance the count and counter."""
+        """Apply one update for ``grads`` (one per parameter) in place, and advance
+        the count and counter: ``_apply``."""
+        self._apply(list(grads))
+
+    def _apply(self, grads: List[torch.Tensor]) -> None:
+        """The subclass's ``updates`` added to the parameters, the gradients of >= 2
+        dims rounded to bf16 first under ``grads_bf16``."""
+        if self.grads_bf16:
+            grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
         for p, u in zip(self.params, self.updates(grads)):
             p.add_(u.to(p.dtype))
 
@@ -191,9 +213,9 @@ class _Guarded:
                 t.copy_(state[f"{kind}.{n}"])
 
 
-class FusedLars(_Guarded):
-    """flash LARS (zero momentum) over a list of parameters, with the non-finite
-    guard folded into the norms it already takes."""
+class _Lars(_Guarded):
+    """What the LARS optimizers share: the hyperparameters, the mask, and the
+    tensors the model group splits."""
 
     def __init__(
         self,
@@ -206,8 +228,9 @@ class FusedLars(_Guarded):
         mesh=None,
         split: Optional[Sequence[bool]] = None,
         names: Optional[Sequence[str]] = None,
+        grads_bf16: bool = False,
     ):
-        super().__init__(params, learning_rate, mesh, names)
+        super().__init__(params, learning_rate, mesh, names, grads_bf16)
         # per parameter: whether the model group splits it (norms over the group)
         self.split = tuple(split) if split is not None else (False,) * len(self.params)
         self.weight_decay = float(weight_decay)
@@ -223,37 +246,6 @@ class FusedLars(_Guarded):
     def _decays(self, i: int) -> bool:
         return self.weight_decay != 0.0 and self._masked(i)
 
-    @torch.no_grad()
-    def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The updates for ``grads`` (one per parameter), and the count/guard state
-        advanced; the caller adds them to the parameters."""
-        lr = schedule_value(self.learning_rate, self.count)
-        wd = self.weight_decay
-        gf = [g.float() for g in grads]
-        g_norm = self._norms(gf, range(len(gf)))
-        decayed = [i for i in range(len(self.params)) if self._decays(i)]
-        w_norm = {}
-        if decayed:
-            w_norm = dict(zip(decayed, self._norms([self.params[i].float() for i in decayed], decayed)))
-        isfinite = torch.isfinite(torch.stack(list(g_norm) + list(w_norm.values()))).all()
-        isfinite = _agree_finite(isfinite, self.mesh)
-
-        out = []
-        for i, (g, w) in enumerate(zip(gf, self.params)):
-            if i not in w_norm:  # flash's plain-SGD path
-                upd = -lr * g
-            else:
-                wn, gn = w_norm[i], g_norm[i]
-                cond = (wn > 0.0) & (gn > 0.0)
-                local_lr = torch.where(
-                    cond, self.trust_coefficient * wn / (gn + wd * wn + self.eps), 1.0
-                )
-                # cond false: 1 * (g + 0 * w) == g exactly, flash's undecayed step
-                upd = -lr * (local_lr * (g + torch.where(cond, wd, 0.0) * w.float()))
-            out.append(torch.where(isfinite, upd, 0.0))
-        self._advance(isfinite)
-        return out
-
     def _norms(self, tensors: List[torch.Tensor], index) -> List[torch.Tensor]:
         """L2 norms; those of model-split tensors over the model group."""
         norms = list(torch._foreach_norm(tensors))
@@ -266,7 +258,69 @@ class FusedLars(_Guarded):
         return norms
 
 
-class MomentumLars(FusedLars):
+class FusedLars(_Lars):
+    """flash LARS (zero momentum) over a list of parameters, with the non-finite
+    guard folded into the norms it already takes: the three stages of
+    ``ops/lars.py``, the kernels' on a CUDA device (``path`` "kernel"), on the CPU
+    the per-tensor norms of ``torch._foreach_norm`` and the plain stages' factors
+    and update."""
+
+    def __init__(self, params: Iterable[torch.Tensor], learning_rate: Schedule, **kwargs):
+        super().__init__(params, learning_rate, **kwargs)
+        self._plan = L.LarsPlan(
+            self.params, [self._decays(i) for i in range(len(self.params))],
+            [self.grads_bf16 and p.dim() >= 2 for p in self.params],
+            self.weight_decay, self.trust_coefficient, self.eps,
+        )
+        self.path = "kernel" if self._plan.cuda else "plain"
+
+    def _agree(self, partials: torch.Tensor) -> Optional[torch.Tensor]:
+        """Under a process group, between the kernels' norm pass and fold: the sums of
+        squares of each tensor the model group splits summed over the group (into
+        the tensor's first chunk, its other chunks zeroed), and whether every
+        rank's sums are finite. None without one."""
+        if self.mesh is None or not self.mesh.distributed:
+            return None
+        split = [r for r, s in zip(self._plan.ranges, self.split) if s]
+        if split:
+            sums = torch.stack([partials[a:b].double().sum(0) for a, b in split]).float()
+            all_reduce_(sums, self.mesh.model_group)
+            for (a, b), total in zip(split, sums):
+                partials[a:b] = 0.0
+                partials[a] = total
+        return _agree_finite(torch.isfinite(partials).all(), self.mesh)
+
+    @torch.no_grad()
+    def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The updates for ``grads`` (one per parameter), and the count/guard state
+        advanced; the caller adds them to the parameters. Each tensor's norms by
+        ``torch._foreach_norm`` (those of model-split tensors over the model group),
+        then the plain stages' factors and update."""
+        plan = self._plan
+        lr = schedule_value(self.learning_rate, self.count)
+        gf = [L.gradient_plain(plan, i, g) for i, g in enumerate(grads)]
+        g_norm = self._norms(gf, range(len(gf)))
+        w_norm = [torch.zeros_like(g_norm[0])] * len(gf)  # 0: a tensor LARS does not adapt
+        decayed = [i for i, a in enumerate(plan.lars) if a]
+        if decayed:
+            for i, n in zip(decayed, self._norms([self.params[i].float() for i in decayed], decayed)):
+                w_norm[i] = n
+        norms = torch.stack([torch.stack(g_norm), torch.stack(w_norm)], 1)
+        agreed = _agree_finite(torch.isfinite(norms).all(), self.mesh)
+        local_lr, wdc, neglr, isfinite = L.factors_plain(plan, norms, lr, agreed)
+        self._advance(isfinite)
+        return L.updates_plain(plan, grads, local_lr, wdc, neglr, isfinite)
+
+    def _apply(self, grads: List[torch.Tensor]) -> None:
+        if not self._plan.cuda:
+            for p, u in zip(self.params, self.updates(grads)):
+                p.add_(u.to(p.dtype))
+            return
+        lr = schedule_value(self.learning_rate, self.count)
+        L.kernel_step(self._plan, grads, lr, self.count, self.total_notfinite, self._agree)
+
+
+class MomentumLars(_Lars):
     """``optax.lars`` with ``momentum`` > 0 inside the non-finite guard: with the
     mask (every parameter, or those of >= 2 dims with ``exclude_bias_and_norm``),
     u = g + wd*w and u *= tc*||w|| / (||u|| + eps) (1 where either norm is 0);
@@ -312,8 +366,8 @@ class Sgd(_Guarded):
     trace kept)."""
 
     def __init__(self, params, learning_rate: Schedule, mesh=None, momentum: float = 0.0,
-                 names: Optional[Sequence[str]] = None):
-        super().__init__(params, learning_rate, mesh, names)
+                 names: Optional[Sequence[str]] = None, grads_bf16: bool = False):
+        super().__init__(params, learning_rate, mesh, names, grads_bf16)
         self.momentum = float(momentum)
         self.trace = [torch.zeros_like(p) for p in self.params] if self.momentum else []
         self.buffers = ("trace",) if self.momentum else ()
@@ -357,6 +411,10 @@ class Fp32Master:
         return self.inner.count
 
     @property
+    def path(self) -> str:
+        return self.inner.path
+
+    @property
     def total_notfinite(self) -> torch.Tensor:
         return self.inner.total_notfinite
 
@@ -386,13 +444,15 @@ def make_optimizer(
     split: Optional[Sequence[bool]] = None,
     momentum: float = 0.0,
     names: Optional[Sequence[str]] = None,
+    grads_bf16: bool = False,
 ) -> Tuple[Any, Schedule]:
     """The optimizer named by the config over ``params``. Returns (optimizer,
     schedule). A step with a non-finite gradient is rejected on the device and
     counted in ``optimizer.total_notfinite``; the Trainer raises on it.
     ``batch_size`` is the global batch; ``split`` flags the parameters ``mesh``'s
     model group splits; ``names`` (the parameters' names) key per-parameter
-    state in the state dict."""
+    state in the state dict; ``grads_bf16`` rounds the gradients of >= 2 dims to
+    bf16 before each step uses them."""
     name = optim_cfg["name"]
     args = optim_cfg.get("args", {})
     if name == "lars":
@@ -406,11 +466,12 @@ def make_optimizer(
             mesh=mesh,
             split=split,
             names=names,
+            grads_bf16=grads_bf16,
         )
         if momentum:
             return MomentumLars(params, schedule, momentum, **kwargs), schedule
         return FusedLars(params, schedule, **kwargs), schedule
     if name == "sgd":
         schedule = make_schedule(scheduler_cfg, float(args["lr"]))
-        return Sgd(params, schedule, mesh=mesh, momentum=momentum, names=names), schedule
+        return Sgd(params, schedule, mesh=mesh, momentum=momentum, names=names, grads_bf16=grads_bf16), schedule
     raise ValueError(f"unknown optimizer {name!r}")

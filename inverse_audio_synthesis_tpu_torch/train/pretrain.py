@@ -9,7 +9,9 @@ Counterpart of the JAX package's ``train/pretrain.py``. One train step:
    once per run; geometries the kernel does not take use ``render_voice``;
 3. both towers and the shared projector under ``torch.autocast(bfloat16)`` when
    ``precision`` is bf16, the VICReg statistics in float32;
-4. backward, then flash LARS with the non-finite guard.
+4. backward, then flash LARS with the non-finite guard (on a CUDA device three
+   launches of ``csrc/lars.cu``, ``train/optim.py:FusedLars``; under
+   ``grads_bf16`` the optimizer rounds the gradients of >= 2 dims to bf16).
 
 Under a profiler the four are the spans ``step/synth``, ``step/forward``,
 ``step/backward`` and ``step/optimizer`` (``utils/profiling.py:span``; the
@@ -84,7 +86,7 @@ from inverse_audio_synthesis_tpu_torch.models.vicreg import (
     vicreg_loss,
 )
 from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh, apply_mesh, create_mesh, split_flags
-from inverse_audio_synthesis_tpu_torch.ops import render as R
+from inverse_audio_synthesis_tpu_torch.ops import launches
 from inverse_audio_synthesis_tpu_torch.synth import prng
 from inverse_audio_synthesis_tpu_torch.synth.config import SynthConfig
 from inverse_audio_synthesis_tpu_torch.synth.voice import (
@@ -285,6 +287,7 @@ class VicregPretrainTask:
                 mesh=self.mesh,
                 split=split_flags(model, self.mesh),
                 names=names,
+                grads_bf16=self._grads_bf16,
             )
             return optimizer
 
@@ -357,8 +360,6 @@ class VicregPretrainTask:
             params = state.optimizer.params
             grads = reduce_gradients(torch.autograd.grad(loss, params), self.mesh)
         with span("step/optimizer"):
-            if self._grads_bf16:
-                grads = [g.to(torch.bfloat16) if g.dim() >= 2 else g for g in grads]
             lr = schedule_value(self.schedule, step)  # lr of the update being applied
             state.optimizer.step(list(grads))
         return dict(zip(self.METRICS, (loss.detach(), repr_l.detach(), std_l.detach(),
@@ -378,7 +379,8 @@ class VicregPretrainTask:
         filters) happens outside a capture."""
         if not self._dispatch_logged:
             self._dispatch_logged = True
-            log.info("steps_per_dispatch path: %s; audio tower: %s", self.dispatch_path, self.audio_tower)
+            log.info("steps_per_dispatch path: %s; optimizer: %s; audio tower: %s", self.dispatch_path,
+                     state.optimizer.path, self.audio_tower)
         if not self._use_graphs or not self._eager_steps:
             rows = []
             for n in batch_nums:
@@ -393,7 +395,7 @@ class VicregPretrainTask:
             graph.inputs.copy_(host, non_blocking=True)
             graph.graph.replay()
             out = graph.out.clone()
-        R.count_replay(graph.launches)
+        launches.count_replay(graph.launches)
         state.step += k
         return state, dict(zip(self.METRICS, out.unbind(0)))
 
@@ -406,15 +408,15 @@ class VicregPretrainTask:
         graph.register_generator_state(self._dropout_gen)
         self._capturing = True
         try:
-            with span("step/graph_capture"), R.recording_launches() as launches, torch.cuda.graph(graph):
+            with span("step/graph_capture"), launches.recording_launches() as recorded, torch.cuda.graph(graph):
                 out = torch.stack([
                     torch.stack([v.float() for v in self._step(state, inputs[0, j], inputs[1, j]).values()])
                     for j in range(k)
                 ], dim=1)
         finally:
             self._capturing = False
-        self._graphs[k] = _StepGraph(graph, inputs, out, dict(launches))
-        log.info("captured a CUDA graph of %d train steps (%s kernel launches recorded)", k, dict(launches))
+        self._graphs[k] = _StepGraph(graph, inputs, out, dict(recorded))
+        log.info("captured a CUDA graph of %d train steps (%s kernel launches recorded)", k, dict(recorded))
         return self._graphs[k]
 
     @torch.no_grad()

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from inverse_audio_synthesis_tpu_torch.ops import build as B
 from inverse_audio_synthesis_tpu_torch.ops import render as R
 from inverse_audio_synthesis_tpu_torch.synth import SynthConfig
 from inverse_audio_synthesis_tpu_torch.synth import voice as tvoice
@@ -236,18 +237,18 @@ def test_build_runs_one_nvcc_per_source(tmp_path, monkeypatch, rc):
     nvcc.write_text(_FAKE_NVCC.format(calls=tmp_path / "calls", rc=rc))
     nvcc.chmod(0o755)
     monkeypatch.setenv("PATH", f"{bin_dir}:{os.environ['PATH']}")
-    monkeypatch.setattr(R, "BUILD_DIR", build)
+    monkeypatch.setattr(B, "BUILD_DIR", build)
     if rc:
         with pytest.raises(RuntimeError, match="nvcc render_fwd.cu failed"):
-            R.build_render_libraries()
+            B.build_libraries()
         assert list(build.iterdir()) == []
         return
-    libs = R.build_render_libraries()
-    assert set(libs) == {"render_fwd", "render_bwd"}
+    libs = B.build_libraries()
+    assert set(libs) == {"render_fwd", "render_bwd", "lars"}
     for lib in libs.values():
         assert lib.read_text() == "lib" and "registers" in lib.with_suffix(".log").read_text()
-    assert R.build_render_libraries() == libs
-    assert (tmp_path / "calls").read_text().count("run") == 2
+    assert B.build_libraries() == libs
+    assert (tmp_path / "calls").read_text().count("run") == 3
 
 
 @pytest.mark.cuda

@@ -68,7 +68,7 @@ DEVIATIONS = {
     "train/optim.py:total_notfinite": "walks an optax state pytree; the port reads optimizer.total_notfinite",
     "models/vicreg.py:VICRegModule.setup": "flax's submodule hook; torch builds them in __init__",
     "train/pretrain.py:make_render_fn": "chooses Pallas or jnp and shard_maps the kernel; synth/voice.py:render_voice_auto chooses K1 or the portable render",
-    "train/pretrain.py:maybe_bf16_grads": "a jit-time XLA cast of the gradients; train/pretrain.py:VicregPretrainTask casts them under grads_bf16",
+    "train/pretrain.py:maybe_bf16_grads": "a jit-time XLA cast of the gradients; under grads_bf16 the port's optimizer rounds them (train/optim.py, in registers in csrc/lars.cu)",
     "utils/utils.py:enable_compile_cache": "XLA's persistent compile cache; the port builds its kernels once per source into build/kernels",
     "utils/profiling.py:StepTimer": _NO_STEP_TIMER,
     "utils/profiling.py:StepTimer.tick": _NO_STEP_TIMER,

@@ -67,7 +67,10 @@ def test_graphed_synth_is_the_eager_synth_bit_for_bit(cuda_device):
         assert torch.equal(params01, want_params), n
         assert torch.equal(audio, want_audio), n
     assert task.synth_calls == {"replayed": len(BATCH_NUMS), "eager": 1}
-    assert task._synth_graph.launches == {"render_fwd": 1, "render_bwd": 0}
+    # the capture recorded one K1 launch and none of any other kernel (the
+    # recording covers every kernel module, ops/launches.py)
+    assert task._synth_graph.launches == {**dict.fromkeys(task._synth_graph.launches, 0), "render_fwd": 1}
+    assert task._synth_graph.launches["render_bwd"] == 0
 
 
 @pytest.mark.cuda

@@ -32,14 +32,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     import chip_smoke
-    from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.ops import build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     chip_smoke.log(f"[device] {n} cards: {'; '.join(smi.splitlines())}; torch {torch.__version__}")
     t0 = time.time()
-    R.build_render_libraries()
-    chip_smoke.log(f"[build] both kernels in {time.time() - t0:.1f} s")
+    build.build_libraries()
+    chip_smoke.log(f"[build] the kernels in {time.time() - t0:.1f} s")
     worlds = ((f"{n} ranks ({n}x1), NCCL, one card each", n, 1, "nccl"),
               (f"{n} ranks ({n // 2}x2), NCCL, one card each", n // 2, 2, "nccl"))
     out = chip_smoke.phase_parallel(worlds)
