@@ -357,6 +357,7 @@ def phase_lars() -> dict:
 
     from inverse_audio_synthesis_tpu_torch.ops import build
     from inverse_audio_synthesis_tpu_torch.ops import lars as L
+    from inverse_audio_synthesis_tpu_torch.ops.launches import reset as reset_launches
     from inverse_audio_synthesis_tpu_torch.train.optim import make_optimizer, schedule_value
     from inverse_audio_synthesis_tpu_torch.train.pretrain import build_vicreg_model
     from inverse_audio_synthesis_tpu_torch.utils.config import load_config
@@ -383,7 +384,7 @@ def phase_lars() -> dict:
         opt, schedule = make(params)
         plain, _ = make(copy)
         lr = schedule_value(schedule, opt.count)
-        L.reset_launch_counts()
+        reset_launches()
         opt.step(grads)
         # the norm pass and the fold against the plain stages on the same gradients
         want = L.fold_plain(plain._plan, L.norm_partials_plain(plain._plan, grads)).double()
@@ -437,6 +438,7 @@ def phase_golden() -> dict:
     import torch
 
     from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.ops.launches import reset as reset_launches
     from inverse_audio_synthesis_tpu_torch.synth import SynthConfig, from_0to1
     from inverse_audio_synthesis_tpu_torch.synth.voice import (
         VOICE_PARAM_SPECS,
@@ -453,7 +455,7 @@ def phase_golden() -> dict:
     noise = make_noise(cfg, "cuda")
     inputs = {name: torch.from_numpy(d["params01"]).cuda() for name, d in probes.items()}
     torch.cuda.synchronize()
-    R.reset_launch_counts()
+    reset_launches()
     k1 = {name: render_voice_fused(p, cfg, noise) for name, p in inputs.items()}
     torch.cuda.synchronize()
     launches = dict(R.launch_counts)
@@ -600,6 +602,7 @@ def phase_train(ckpt_dir: Path) -> dict:
 
     from inverse_audio_synthesis_tpu_torch.ops import lars as L
     from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.ops.launches import reset as reset_launches
     from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
     from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
     from inverse_audio_synthesis_tpu_torch.train.pretrain import VicregPretrainTask
@@ -615,7 +618,7 @@ def phase_train(ckpt_dir: Path) -> dict:
     log(f"[train] vicreg=full dim={cfg.dim} embeddim={cfg.embeddim} projector {cfg.vicreg.mlp} "
         f"batch {cfg.vicreg.batch_size} image {cfg.image.height}x{cfg.image.width} "
         f"precision {cfg.precision}: {n_params} params, set-up {time.time() - t0:.1f} s")
-    if not task.fused_render:
+    if not task.voices.fused_render:
         raise AssertionError("the full config's geometry must take the render kernel")
     split = BatchNumberSplit(cfg.num_batches, cfg.ntest_batches, cfg.seed)
     logger = ListLogger()
@@ -623,8 +626,7 @@ def phase_train(ckpt_dir: Path) -> dict:
     trainer = Trainer(task, split, logger=logger, checkpoint=checkpoint,
                       limit_train_batches=N_STEPS, log_every=1)
 
-    R.reset_launch_counts()
-    L.reset_launch_counts()
+    reset_launches()
     state = trainer.fit(state)
     val = task.val_step(state, split.val_batch_num(0))
     val = {k: float(v) for k, v in val.items()}
@@ -703,6 +705,7 @@ def phase_dispatch() -> dict:
     from inverse_audio_synthesis_tpu_torch.models.jax_weights import export_jax_variables, flatten
     from inverse_audio_synthesis_tpu_torch.models.torch_import import load_vision_weights_file
     from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.ops.launches import reset as reset_launches
     from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
     from inverse_audio_synthesis_tpu_torch.utils.profiling import nan_debugging, trace
 
@@ -722,7 +725,7 @@ def phase_dispatch() -> dict:
             if name == "shifted":
                 torch.rand(1, device="cuda", generator=state.model.backbone_param.block1.do.generator)
             init = _host_state(state)
-            R.reset_launch_counts()
+            reset_launches()
             state = trainer.fit(state)
             torch.cuda.synchronize()
             runs[name] = {"launches": dict(R.launch_counts), "state": _host_state(state), "init": init,
@@ -912,6 +915,7 @@ def phase_downstream(ckpt_dir: Path, probe) -> dict:
     import torch
 
     from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.ops.launches import reset as reset_launches
     from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
     from inverse_audio_synthesis_tpu_torch.train.downstream import AudioToParamsTask
     from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
@@ -939,7 +943,7 @@ def phase_downstream(ckpt_dir: Path, probe) -> dict:
         f"batch {a2p.batch_size} dim {cfg.dim} {cfg.torchsynth.buffer_size_seconds} s "
         f"precision {cfg.precision} render_bwd {task.render_bwd} mel_rows {a2p.mel_rows} "
         f"mel_chunk {a2p.mel_chunk}: set-up {time.time() - t0:.1f} s")
-    if not task.fused_render or task.render_bwd != "pallas":
+    if not task.voices.fused_render or task.render_bwd != "pallas":
         raise AssertionError("the slice must take the render kernels")
     split = BatchNumberSplit(cfg.num_batches, cfg.ntest_batches, cfg.seed)
     logger = ListLogger()
@@ -947,7 +951,7 @@ def phase_downstream(ckpt_dir: Path, probe) -> dict:
     frozen_before = [p.detach().clone() for p in task.frozen.parameters()][:4]
 
     torch.cuda.reset_peak_memory_stats()
-    R.reset_launch_counts()
+    reset_launches()
     state = trainer.fit(state)
     metrics, true_audio, pred_audio = task.test_step(state, split.test_batch_num(0))
     metrics = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
@@ -1009,6 +1013,7 @@ def phase_retrieval(ckpt_dir: Path, k1_b128_ms: float) -> dict:
 
     from inverse_audio_synthesis_tpu_torch.eval.retrieval import RetrievalEvaluator
     from inverse_audio_synthesis_tpu_torch.ops import render as R
+    from inverse_audio_synthesis_tpu_torch.ops.launches import reset as reset_launches
     from inverse_audio_synthesis_tpu_torch.synth.voice import make_noise
     from inverse_audio_synthesis_tpu_torch.train.pretrain import restore_vicreg, synth_config_from_cfg
     from inverse_audio_synthesis_tpu_torch.utils.config import load_config
@@ -1038,7 +1043,7 @@ def phase_retrieval(ckpt_dir: Path, k1_b128_ms: float) -> dict:
         f"{cfg.precision}; candidate noise buffer made once in {noise_ms:.1f} ms")
     n_batches = 3
     with tempfile.TemporaryDirectory(prefix="chip_smoke_retrieval_") as tmp:
-        R.reset_launch_counts()
+        reset_launches()
         ev = evaluator()
         ev.assert_planted_queries_found()
         batch_s = timed_steps(ev)

@@ -50,11 +50,6 @@ _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
 class LarsPlan:
     """The fixed part of a LARS step over ``params``: ``lars[i]`` says whether
     tensor i is adapted and decayed (else it takes -lr * g), ``rounds[i]`` whether

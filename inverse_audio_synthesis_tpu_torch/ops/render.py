@@ -64,11 +64,6 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
 def fused_render_supported(batch: int, audio_len: int, control_len: int) -> bool:
     """The kernel takes an integer audio/control ratio in [2, 128] (the JAX
     kernel's gate; 128 = LANES * MAX_RUN also bounds the kernels' runs)."""

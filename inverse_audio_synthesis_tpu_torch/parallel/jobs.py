@@ -32,6 +32,7 @@ from inverse_audio_synthesis_tpu_torch.eval.retrieval import RetrievalEvaluator
 from inverse_audio_synthesis_tpu_torch.models.jax_weights import export_jax_variables, load_jax_variables
 from inverse_audio_synthesis_tpu_torch.models.layers import BatchNorm
 from inverse_audio_synthesis_tpu_torch.models.vicreg import Projector
+from inverse_audio_synthesis_tpu_torch.ops import launches
 from inverse_audio_synthesis_tpu_torch.ops import render as R
 from inverse_audio_synthesis_tpu_torch.parallel import collectives as C
 from inverse_audio_synthesis_tpu_torch.parallel.mesh import (
@@ -76,7 +77,7 @@ def _sync(device: torch.device) -> None:
 
 def _reset(device: torch.device) -> None:
     _sync(device)
-    R.reset_launch_counts()
+    launches.reset()
     C.reset_all_reduce_counts()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -144,19 +145,19 @@ def render_rows(task, batch_num: int, cotangent_seed: int = 7) -> Optional[Resul
     from its own noise rows and a position-keyed cotangent (the global batch's
     rows, so they compare bit for bit with a one-rank run). None when the
     geometry does not take the fused render."""
-    if not task.fused_render:
+    if not task.voices.fused_render:
         return None
     with torch.no_grad():
         params01 = sample_voice_params(batch_num, task.synth, task.device)[task.rows]
         p, routed, midi_f0 = compute_controls(params01, task.synth)
         routed, scalars = routed.contiguous(), fused_scalars(p, midi_f0).contiguous()
         sr = float(task.synth.sample_rate)
-        audio, seg_mean, offset = R.render_audio_fused(routed, scalars, task._noise, sr, save_phase=True)
+        audio, seg_mean, offset = R.render_audio_fused(routed, scalars, task.voices.noise, sr, save_phase=True)
         g = modules.noise(prng.prng_key(cotangent_seed), routed.shape[0], task.synth.buffer_size,
                           device=task.device, row_offset=task.rows.start)
-        d_routed, d_scalars = R.render_audio_fused_bwd(routed, scalars, task._noise, g, seg_mean, offset, sr)
+        d_routed, d_scalars = R.render_audio_fused_bwd(routed, scalars, task.voices.noise, g, seg_mean, offset, sr)
     return {"audio": audio.cpu(), "d_routed": d_routed.cpu(), "d_scalars": d_scalars.cpu(),
-            "noise_row_sums": task._noise.double().sum(1).cpu()}
+            "noise_row_sums": task.voices.noise.double().sum(1).cpu()}
 
 
 def pretrain(overrides: Sequence[str], batch_nums: Sequence[int] = (7,), val_batch: Optional[int] = 11,

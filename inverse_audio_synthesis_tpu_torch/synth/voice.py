@@ -300,6 +300,28 @@ def is_train_split(batch_num: int, config: SynthConfig, device=None) -> torch.Te
     return torch.full((config.batch_size,), train, dtype=torch.bool, device=device)
 
 
+class VoiceSource:
+    """The training tasks' voices: ``source(batch_num)`` -> (audio [B, 1, Ta],
+    params01 [B, 78]) of the rows ``rows`` of the global batch ``config.batch_size``.
+    The global batch's parameters are drawn and its rows rendered under
+    ``no_grad``, with this rank's rows of the noise buffer (``noise``, made once:
+    rows are position-keyed). ``batch_num`` is an int, or an int64 0-dim tensor on
+    ``device`` (hashed there with ``seed_key``, so a CUDA graph can read it from a
+    buffer). ``fused_render`` says whether the geometry takes the fused render."""
+
+    def __init__(self, config: SynthConfig, device, rows: slice):
+        self.config, self.device, self.rows = config, torch.device(device), rows
+        self.noise = make_noise(config, self.device, rows.stop - rows.start, rows.start)
+        self.seed_key = prng.prng_key(config.seed).to(self.device)
+        self.fused_render = fused_render_available(config)
+
+    @torch.no_grad()
+    def __call__(self, batch_num) -> Tuple[torch.Tensor, torch.Tensor]:
+        params01 = sample_voice_params(batch_num, self.config, self.device, self.seed_key)[self.rows]
+        audio = render_voice_auto(params01, self.config, noise=self.noise)
+        return audio[:, None, :], params01
+
+
 _INDEX = {(s.module, s.name): i for i, s in enumerate(VOICE_PARAM_SPECS)}
 
 
@@ -311,7 +333,8 @@ class Voice:
     resynthesizes from the parameters set. Renders with ``render_voice_auto``
     (the fused render where the geometry allows: the CUDA kernel on a CUDA
     device) from a noise buffer made once. The computation underneath is
-    ``sample_voice_params``/``render_voice_auto``; training code calls those.
+    ``sample_voice_params``/``render_voice_auto``; the training tasks hold a
+    ``VoiceSource`` of them.
     """
 
     def __init__(self, synthconfig: SynthConfig, device="cuda"):

@@ -43,24 +43,22 @@ under checkpointing, and the term is the sum of the parts' row-weighted means
 over the mel rows, the global mean.
 
 On a CUDA device the train step's synth (the parameter draw, this rank's rows,
-the controls and K1 on the task's noise) is one CUDA graph, captured at the
-second train step, after the first ran it eagerly (so the render library, the
-handles and the caches are made outside a capture), and replayed at every later
-train step: about 1,145 eager launches a step become the batch number's
-``fill_`` into the graph's 0-dim int64 buffer and one ``cudaGraphLaunch``. The
-batch key is folded in on the device (``synth/voice.py:sample_voice_params``
-with the task's ``_seed_key``); the synth draws no torch RNG and holds no
-collective, so the graph is valid under a process group too. Its outputs are
-the graph's static buffers, handed on without a copy (the audio is 722 MB at
-batch 1024): every consumer of one step's synth is enqueued on the stream before
-the next replay, and autograd saves neither (``torch.stack`` copies the true
-audio for the mel term; ``param_mse`` saves the difference). On the CPU the
-synth runs eagerly. ``synthesize`` itself always runs eagerly and returns fresh
-tensors, so the test pass, the export and the audio log, which keep audio across
-calls, never see the graph's buffers. ``synth_path`` names the path (logged when
-the task is built) and ``synth_calls`` counts the train step's replays and
-eager synths; ``ops/render.py:launch_counts`` counts K1's recorded launch at each
-replay (``ops/launches.py:count_replay``).
+the controls and K1 on the task's noise) is one CUDA graph
+(``ops/launches.py:CapturedGraph``), captured at the second train step, after
+the first ran it eagerly, and replayed at every later train step: about 1,145
+eager launches a step become the batch number's ``fill_`` into the graph's 0-dim
+int64 input buffer and one ``cudaGraphLaunch``. The synth (``VoiceSource``)
+draws no torch RNG and holds no collective, so the graph is valid under a
+process group too. Its outputs are the graph's static buffers, handed on without
+a copy (the audio is 722 MB at batch 1024): every consumer of one step's synth
+is enqueued on the stream before the next replay, and autograd saves neither
+(``torch.stack`` copies the true audio for the mel term; ``param_mse`` saves the
+difference). On the CPU the synth runs eagerly. ``synthesize`` itself always
+runs eagerly and returns fresh tensors, so the test pass, the export and the
+audio log, which keep audio across calls, never see the graph's buffers.
+``synth_path`` names the path (logged when the task is built) and
+``synth_calls`` counts the train step's replays and eager synths;
+``ops/render.py:launch_counts`` counts K1's recorded launch at each replay.
 """
 
 from __future__ import annotations
@@ -75,22 +73,17 @@ import torch.utils.checkpoint
 
 from inverse_audio_synthesis_tpu_torch.models.audio_to_params import AudioRepresentationToParams
 from inverse_audio_synthesis_tpu_torch.models.layers import BatchNorm, Dropout
-from inverse_audio_synthesis_tpu_torch.ops import launches
+from inverse_audio_synthesis_tpu_torch.ops.launches import CapturedGraph, autocast
 from inverse_audio_synthesis_tpu_torch.ops.stft import METHODS as STFT_METHODS
 from inverse_audio_synthesis_tpu_torch.ops.stft import MelSpectrogram, mrstft_from_stats, mrstft_stats
 from inverse_audio_synthesis_tpu_torch.parallel.collectives import gather_rows, global_sum
 from inverse_audio_synthesis_tpu_torch.synth import prng
-from inverse_audio_synthesis_tpu_torch.synth.voice import (
-    RENDER_BWD,
-    fused_render_available,
-    make_noise,
-    render_voice_auto,
-    sample_voice_params,
-)
+from inverse_audio_synthesis_tpu_torch.synth.voice import RENDER_BWD, VoiceSource, render_voice_auto
 from inverse_audio_synthesis_tpu_torch.train.optim import make_optimizer, reduce_gradients
 from inverse_audio_synthesis_tpu_torch.train.pretrain import (
     TrainState,
     VicregPretrainTask,
+    steps_in_order,
     synth_config_from_cfg,
 )
 from inverse_audio_synthesis_tpu_torch.utils.profiling import span
@@ -99,16 +92,6 @@ log = logging.getLogger(__name__)
 
 LOSSES = ("embedding", "param_mse", "mel_l1", "combined")
 DEFAULT_LOSS_WEIGHTS = {"param_mse": 1.0, "mel_l1": 0.1}
-
-
-class _SynthGraph:
-    """A CUDA graph of ``synthesize`` on a device batch number: its input buffer
-    (0-dim int64), its outputs ((audio [B, 1, Ta], params01 [B, 78]), which each
-    replay overwrites) and the kernel launches it recorded."""
-
-    def __init__(self, graph, batch_num: torch.Tensor, out: Tuple[torch.Tensor, torch.Tensor],
-                 launches: Dict[str, int]):
-        self.graph, self.batch_num, self.out, self.launches = graph, batch_num, out, launches
 
 
 class AudioToParamsTask:
@@ -156,17 +139,13 @@ class AudioToParamsTask:
         self._grads_bf16 = self._bf16 and bool(cfg.get("grads_bf16", False))
         # this rank's rows of the noise buffer (at the downstream batch of 1024 a
         # whole buffer is 722 MB)
-        self._noise = make_noise(
-            self.synth, self.device, self.rows.stop - self.rows.start, self.rows.start
-        )
-        self._seed_key = prng.prng_key(self.synth.seed).to(self.device)
-        self.fused_render = fused_render_available(self.synth)
+        self.voices = VoiceSource(self.synth, self.device, self.rows)
         # how train_step runs its synth, fixed here (the module docstring)
         self._graph_synth = self.device.type == "cuda"
         self.synth_path = ("cuda graph: captured after the first eager synth, replayed each train step"
                            if self._graph_synth else "eager: a CPU run")
         self.synth_calls = {"replayed": 0, "eager": 0}
-        self._synth_graph: Optional[_SynthGraph] = None
+        self._synth_graph: Optional[CapturedGraph] = None
         log.info("train step synth path: %s", self.synth_path)
 
         # every mel.method is the same float32 transform here (ops/stft.py), so the
@@ -227,7 +206,7 @@ class AudioToParamsTask:
 
     # -- frozen towers -----------------------------------------------------------
     def _autocast(self):
-        return torch.autocast(device_type=self.device.type, dtype=torch.bfloat16, enabled=self._bf16)
+        return autocast(self.device, self._bf16)
 
     def _audio_repr(self, audio):
         with self._autocast():
@@ -245,13 +224,9 @@ class AudioToParamsTask:
         return render_voice_auto(params01.float(), self.synth, noise, bwd=self.render_bwd)
 
     def synthesize(self, batch_num) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(audio [B, 1, Ta], params01 [B, 78]) of this rank's rows for a batch
-        number (an int, or an int64 tensor on the device), fresh tensors the
-        caller may keep."""
-        params01 = sample_voice_params(batch_num, self.synth, self.device, self._seed_key)[self.rows]
-        with torch.no_grad():
-            audio = render_voice_auto(params01, self.synth, noise=self._noise)
-        return audio[:, None, :], params01
+        """(audio [B, 1, Ta], params01 [B, 78]) of this rank's rows (``VoiceSource``),
+        fresh tensors the caller may keep."""
+        return self.voices(batch_num)
 
     def _train_synth(self, batch_num: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """The train step's ``synthesize(batch_num)``: eager on the CPU and at the
@@ -260,24 +235,12 @@ class AudioToParamsTask:
         if not self._graph_synth or not self.synth_calls["eager"]:
             self.synth_calls["eager"] += 1
             return self.synthesize(batch_num)
-        graph = self._synth_graph or self._capture_synth()
-        graph.batch_num.fill_(batch_num)
-        graph.graph.replay()
-        launches.count_replay(graph.launches)
+        if self._synth_graph is None:
+            batch_num_buffer = torch.zeros((), dtype=torch.int64, device=self.device)
+            self._synth_graph = CapturedGraph(self.synthesize, batch_num_buffer,
+                                              "the train step's synth as a CUDA graph")
         self.synth_calls["replayed"] += 1
-        return graph.out
-
-    def _capture_synth(self) -> _SynthGraph:
-        """Capture ``synthesize`` on a device batch number into a CUDA graph
-        (nothing runs; it runs at each replay)."""
-        batch_num = torch.zeros((), dtype=torch.int64, device=self.device)
-        graph = torch.cuda.CUDAGraph()
-        with span("step/graph_capture"), launches.recording_launches() as recorded, torch.cuda.graph(graph):
-            out = self.synthesize(batch_num)
-        self._synth_graph = _SynthGraph(graph, batch_num, out, dict(recorded))
-        log.info("captured the train step's synth as a CUDA graph (%s kernel launches recorded)",
-                 dict(recorded))
-        return self._synth_graph
+        return self._synth_graph.replay(batch_num)
 
     def _shared(self, head, audio, params01, with_pred_emb: bool):
         """(pred_params, repr_loss or None, frozen_loss): the frozen VICReg loss of
@@ -333,7 +296,7 @@ class AudioToParamsTask:
             if stop <= start:
                 continue
             i, j = start - lo, stop - lo
-            args = (pred_params[i:j], audio[i:j, 0, :], self._noise[i:j])
+            args = (pred_params[i:j], audio[i:j, 0, :], self.voices.noise[i:j])
             if chunk and chunk < n_mel:
                 value = torch.utils.checkpoint.checkpoint(self._mel_l1, *args, use_reentrant=False)
             else:
@@ -389,17 +352,13 @@ class AudioToParamsTask:
         the whole step would also take the backward's, but the head's dropout and
         BatchNorm, ``autograd.grad`` through K2, the STFT stack and ``mel_chunk``'s
         recomputation would all have to be made capture-safe first."""
-        rows = []
-        for n in batch_nums:
-            state, m = self.train_step(state, n)
-            rows.append(m)
-        return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+        return steps_in_order(self.train_step, state, batch_nums)
 
     @torch.no_grad()
     def test_metrics(self, true_audio, params01, pred_params) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Resynthesis from the predicted parameters and the test metrics, each
         beside its trivial-baseline floor. Returns (metrics, pred_audio)."""
-        pred_audio = self._render(pred_params, self._noise)
+        pred_audio = self._render(pred_params, self.voices.noise)
         mels = self.mel(torch.stack([pred_audio, true_audio]))
         # the spectral sums of the global batch
         stats = global_sum(mrstft_stats(pred_audio, true_audio, method=self._test_spectral_method),

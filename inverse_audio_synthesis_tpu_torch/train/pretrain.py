@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``train/pretrain.py``. One train step:
    (threefry, bit-identical to the JAX package);
 2. ``compute_controls`` and the fused render (the CUDA kernel for a CUDA run,
    its plain version for a CPU run) -> audio [B, Ta], with the noise buffer made
-   once per run; geometries the kernel does not take use ``render_voice``;
+   once per run (``synth/voice.py:VoiceSource``); geometries the kernel does not
+   take use ``render_voice``;
 3. both towers and the shared projector under ``torch.autocast(bfloat16)`` when
    ``precision`` is bf16, the VICReg statistics in float32;
 4. backward, then flash LARS with the non-finite guard (on a CUDA device three
@@ -33,19 +34,16 @@ MobileNetV3-Small trunk (``models/torch_import.py``) into the audio tower at
 
 ``train_step_multi`` runs k steps for one dispatch of the loop
 (``steps_per_dispatch``). On a CUDA run with no process group and anomaly mode
-off the k steps are one CUDA graph, captured once per dispatch length and
-replayed. The graph reads the k batch numbers and step numbers from a device
-buffer the host fills before each replay (the batch key is folded in on the
-device, ``synth/voice.py:sample_voice_params``); the dropout generator is
-registered with the graph, so each replay draws the masks eager steps would;
-autocast does not cache casts under capture; every tensor the graph touches
-(parameters, BatchNorm statistics, the optimizer's count, counter and masters,
-the noise) keeps its address, since everything updates them in place; the
-render library is loaded before the capture (by the loop's first step, always a
-single eager one). A capture or replay that fails raises: there is no fallback.
-On the CPU, under a process group (gloo cannot be captured) or in anomaly mode
-the k steps run in order through ``train_step``. The path is chosen when the
-task is built and logged at the first dispatch.
+off the k steps are one CUDA graph (``ops/launches.py:CapturedGraph``, which
+says what a graph needs), captured once per dispatch length after the loop's
+first dispatch, always a single eager step, and replayed. It reads the k batch
+and step numbers from its [2, k] int64 input buffer and draws dropout from the
+registered generator; the parameters, BatchNorm statistics, the optimizer's
+count, counter and masters and the noise are all updated in place. A capture or
+replay that fails raises: there is no fallback. On the CPU, under a process
+group (gloo cannot be captured) or in anomaly mode the k steps run in order
+through ``train_step``. The path is chosen when the task is built and logged at
+the first dispatch.
 
 Under a process group (``parallel/launch.py``) the task runs on the ``mesh.data
 x mesh.model`` mesh of ``parallel/mesh.py``: every rank builds the full model from
@@ -67,7 +65,7 @@ from __future__ import annotations
 import logging
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -86,15 +84,9 @@ from inverse_audio_synthesis_tpu_torch.models.vicreg import (
     vicreg_loss,
 )
 from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh, apply_mesh, create_mesh, split_flags
-from inverse_audio_synthesis_tpu_torch.ops import launches
-from inverse_audio_synthesis_tpu_torch.synth import prng
+from inverse_audio_synthesis_tpu_torch.ops.launches import CapturedGraph, autocast
 from inverse_audio_synthesis_tpu_torch.synth.config import SynthConfig
-from inverse_audio_synthesis_tpu_torch.synth.voice import (
-    fused_render_available,
-    make_noise,
-    render_voice_auto,
-    sample_voice_params,
-)
+from inverse_audio_synthesis_tpu_torch.synth.voice import VoiceSource
 from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.optim import (
     Fp32Master,
@@ -205,13 +197,14 @@ class TrainState:
     optimizer: Any
 
 
-class _StepGraph:
-    """A CUDA graph of k train steps: its input buffer ([2, k] int64 batch and step
-    numbers), its output ([n metrics, k] float32) and the kernel launches it
-    recorded."""
-
-    def __init__(self, graph, inputs: torch.Tensor, out: torch.Tensor, launches: Dict[str, int]):
-        self.graph, self.inputs, self.out, self.launches = graph, inputs, out, launches
+def steps_in_order(train_step: Callable, state: TrainState,
+                   batch_nums: Sequence) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """``train_step`` on each batch number in order -> (state, metrics stacked [k])."""
+    rows = []
+    for n in batch_nums:
+        state, m = train_step(state, n)
+        rows.append(m)
+    return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
 
 
 class VicregPretrainTask:
@@ -229,17 +222,11 @@ class VicregPretrainTask:
         self._bf16 = cfg.get("precision") == "bf16"
         self._grads_bf16 = self._bf16 and bool(cfg.get("grads_bf16", False))
         self._weights_bf16 = bool(cfg.get("weights_bf16", False))
-        # the fixed-seed noise buffer of this rank's rows, made once per run (rows
-        # are position-keyed)
-        self._noise = make_noise(
-            self.synth, self.device, self.rows.stop - self.rows.start, self.rows.start
-        )
-        self._seed_key = prng.prng_key(self.synth.seed).to(self.device)
-        self.fused_render = fused_render_available(self.synth)
+        self.voices = VoiceSource(self.synth, self.device, self.rows)
         log.info(
             "render path: %s",
             ("CUDA kernel" if self.device.type == "cuda" else "kernel's plain version")
-            if self.fused_render
+            if self.voices.fused_render
             else "plain render_voice (geometry not taken by the kernel)",
         )
         # how train_step_multi runs k steps, fixed here
@@ -247,12 +234,11 @@ class VicregPretrainTask:
         eager = ("a CPU run" if self.device.type != "cuda" else
                  "a process group is not captured" if self.mesh.distributed else
                  "anomaly mode" if anomaly else None)
-        self._use_graphs = eager is None
         self.dispatch_path = ("cuda graph: one graph per dispatch length, replayed" if eager is None
                               else f"eager: in order through train_step ({eager})")
         self.audio_tower = audio_tower_name(cfg)  # with its counters once init_state builds it
-        self._graphs: Dict[int, _StepGraph] = {}
-        self._capturing = False
+        # dispatch length -> its graph; None on the eager path
+        self._graphs: Optional[Dict[int, CapturedGraph]] = {} if eager is None else None
         self._eager_steps = 0
         self._dispatch_logged = False
 
@@ -321,19 +307,11 @@ class VicregPretrainTask:
 
     # -- steps -------------------------------------------------------------------
     def _autocast(self):
-        # no cast cache under capture: a cached cast would be made once, at capture
-        return torch.autocast(
-            device_type=self.device.type, dtype=torch.bfloat16, enabled=self._bf16,
-            cache_enabled=not self._capturing,
-        )
+        return autocast(self.device, self._bf16)
 
     def synthesize(self, batch_num) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(audio [B, 1, Ta], params01 [B, 78]) of this rank's rows for a batch
-        number (an int, or an int64 tensor on the device): the global batch's
-        parameters are drawn, its rows rendered."""
-        params01 = sample_voice_params(batch_num, self.synth, self.device, self._seed_key)[self.rows]
-        audio = render_voice_auto(params01, self.synth, noise=self._noise)
-        return audio[:, None, :], params01
+        """(audio [B, 1, Ta], params01 [B, 78]) of this rank's rows (``VoiceSource``)."""
+        return self.voices(batch_num)
 
     def _losses(self, x: torch.Tensor, y: torch.Tensor):
         return vicreg_loss(
@@ -381,43 +359,27 @@ class VicregPretrainTask:
             self._dispatch_logged = True
             log.info("steps_per_dispatch path: %s; optimizer: %s; audio tower: %s", self.dispatch_path,
                      state.optimizer.path, self.audio_tower)
-        if not self._use_graphs or not self._eager_steps:
-            rows = []
-            for n in batch_nums:
-                state, m = self.train_step(state, n)
-                rows.append(m)
-            return state, {k: torch.stack([m[k] for m in rows]) for k in self.METRICS}
+        if self._graphs is None or not self._eager_steps:
+            return steps_in_order(self.train_step, state, batch_nums)
         k = len(batch_nums)
-        graph = self._graphs.get(k) or self._capture(state, k)
-        with span("step/graph_replay"):
-            host = torch.tensor([list(batch_nums), list(range(state.step, state.step + k))],
-                                dtype=torch.int64, pin_memory=True)
-            graph.inputs.copy_(host, non_blocking=True)
-            graph.graph.replay()
-            out = graph.out.clone()
-        launches.count_replay(graph.launches)
-        state.step += k
-        return state, dict(zip(self.METRICS, out.unbind(0)))
-
-    def _capture(self, state: TrainState, k: int) -> _StepGraph:
-        """Capture k train steps into a CUDA graph (nothing runs; the steps run at
-        each replay). The steps' phase spans are recorded here, at capture, and
-        not at replay."""
-        inputs = torch.zeros((2, k), dtype=torch.int64, device=self.device)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._dropout_gen)
-        self._capturing = True
-        try:
-            with span("step/graph_capture"), launches.recording_launches() as recorded, torch.cuda.graph(graph):
-                out = torch.stack([
+        if k not in self._graphs:
+            # the k steps on a [2, k] int64 buffer of batch and step numbers -> the
+            # metrics [n metrics, k]; the steps' phase spans are recorded here, at
+            # capture, and not at replay
+            def steps(inputs):
+                return torch.stack([
                     torch.stack([v.float() for v in self._step(state, inputs[0, j], inputs[1, j]).values()])
                     for j in range(k)
                 ], dim=1)
-        finally:
-            self._capturing = False
-        self._graphs[k] = _StepGraph(graph, inputs, out, dict(recorded))
-        log.info("captured a CUDA graph of %d train steps (%s kernel launches recorded)", k, dict(recorded))
-        return self._graphs[k]
+
+            self._graphs[k] = CapturedGraph(steps, torch.zeros((2, k), dtype=torch.int64, device=self.device),
+                                            f"a CUDA graph of {k} train steps", (self._dropout_gen,))
+        with span("step/graph_replay"):
+            host = torch.tensor([list(batch_nums), list(range(state.step, state.step + k))],
+                                dtype=torch.int64, pin_memory=True)
+            out = self._graphs[k].replay(host).clone()
+        state.step += k
+        return state, dict(zip(self.METRICS, out.unbind(0)))
 
     @torch.no_grad()
     def val_step(self, state: TrainState, batch_num: int) -> Dict[str, torch.Tensor]:

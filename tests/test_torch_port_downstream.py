@@ -40,7 +40,7 @@ from inverse_audio_synthesis_tpu_torch.models.jax_weights import (
     flatten,
     load_jax_variables,
 )
-from inverse_audio_synthesis_tpu_torch.ops import render as R
+from inverse_audio_synthesis_tpu_torch.ops import launches
 from inverse_audio_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from inverse_audio_synthesis_tpu_torch.train.downstream import AudioToParamsTask
 from inverse_audio_synthesis_tpu_torch.train.loop import Trainer
@@ -217,7 +217,7 @@ def test_mel_chunk_matches_unchunked(towers):
     chunked = _port_downstream(towers, ["audio_to_params.loss=mel_l1", "audio_to_params.mel_chunk=4"])
     s_f, s_c = full.init_state(), chunked.init_state()
     s_c.model.load_state_dict(s_f.model.state_dict())
-    R.reset_launch_counts()
+    launches.reset()
     s_f, m_f = full.train_step(s_f, 17)
     s_c, m_c = chunked.train_step(s_c, 17)
     assert float(m_c["audio_to_params/train/loss"]) == pytest.approx(float(m_f["audio_to_params/train/loss"]), rel=1e-5)

@@ -281,11 +281,11 @@ def test_unchanged_state_fault_leaves_the_parameters(masters):
 
 def test_a_graph_recording_counts_every_kernel_module():
     """Launches made while a capture records go to the recording, of both kernel
-    modules; each replay adds them to their own module's counts."""
+    modules; each replay adds them to their own module's counts; ``reset`` zeroes
+    every module's counts."""
     from inverse_audio_synthesis_tpu_torch.ops import render as R
 
-    L.reset_launch_counts()
-    R.reset_launch_counts()
+    launches.reset()
     with launches.recording_launches() as recorded:
         for name in ("lars_norm", "lars_fold", "lars_update", "render_fwd"):
             launches.count(name)
@@ -295,8 +295,9 @@ def test_a_graph_recording_counts_every_kernel_module():
     launches.count_replay(recorded)
     assert L.launch_counts == {"lars_norm": 2, "lars_fold": 2, "lars_update": 2}
     assert R.launch_counts == {"render_fwd": 2, "render_bwd": 0}
-    L.reset_launch_counts()
-    R.reset_launch_counts()
+    launches.reset()
+    assert L.launch_counts == {"lars_norm": 0, "lars_fold": 0, "lars_update": 0}
+    assert R.launch_counts == {"render_fwd": 0, "render_bwd": 0}
 
 
 # -- the benchmark's count and metric ---------------------------------------------------
@@ -398,7 +399,7 @@ def test_kernel_update_is_the_plain_update_given_its_norms(cuda_device, model, g
     plain, _ = _fused(copy, names, grads_bf16=grads == "grads_bf16")
     assert opt.path == "kernel" and opt._plan.n_chunks > len(params)
     lr = schedule_value(schedule, opt.count)
-    L.reset_launch_counts()
+    launches.reset()
     opt.step(gs)
     torch.cuda.synchronize()
     assert L.launch_counts == {"lars_norm": 1, "lars_fold": 1, "lars_update": 1}
@@ -456,7 +457,7 @@ def test_a_graph_replay_is_the_eager_step(cuda_device):
             graphed.step(static)
     torch.cuda.current_stream().wait_stream(stream)
     assert recorded["lars_norm"] == recorded["lars_fold"] == recorded["lars_update"] == 2
-    L.reset_launch_counts()
+    launches.reset()
     graph.replay()
     launches.count_replay(recorded)
     eager.step(grads)
@@ -492,7 +493,7 @@ def test_tensors_the_kernels_do_not_take_raise(cuda_device):
     with pytest.raises(ValueError, match=f"at most {L.MAX_TENSORS}"):
         FusedLars([torch.zeros(2, device=cuda_device) for _ in range(L.MAX_TENSORS + 1)], 0.1)
     opt = FusedLars([base, torch.randn(4, device=cuda_device)], 0.1, weight_decay=1e-6)
-    L.reset_launch_counts()
+    launches.reset()
     with pytest.raises(ValueError, match="gradient 0"):
         opt.step([torch.randn(6, 8, device=cuda_device).t(), torch.randn(4, device=cuda_device)])
     with pytest.raises(ValueError, match="gradient 1"):

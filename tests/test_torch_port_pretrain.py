@@ -150,7 +150,7 @@ def test_batch_number_to_audio_at_1s_uses_fused_plain_version():
     render bound."""
     task = _cpu_task(TINY + ["image.height=105", "image.width=140",
                              "torchsynth.buffer_size_seconds=1.0", "vicreg.batch_size=4"])
-    assert task.fused_render
+    assert task.voices.fused_render
     audio, params01 = task.synthesize(42)
     jcfg = JSynthConfig(batch_size=4, buffer_size_seconds=1.0, seed=42)
     ref = np.asarray(jvoice.render_voice(jvoice.sample_voice_params(42, jcfg), jcfg))

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from inverse_audio_synthesis_tpu_torch.ops import launches
 from inverse_audio_synthesis_tpu_torch.ops import render as R
 from inverse_audio_synthesis_tpu_torch.synth import SynthConfig
 from inverse_audio_synthesis_tpu_torch.synth import voice as tvoice
@@ -277,7 +278,7 @@ def test_cuda_bwd_kernel_matches_plain(cuda_device, batch):
 def test_cuda_autograd_launches_both_kernels(cuda_device):
     cfg = SynthConfig(batch_size=4, buffer_size_seconds=1.0)
     p = tvoice.sample_voice_params(5, cfg, cuda_device).requires_grad_()
-    R.reset_launch_counts()
+    launches.reset()
     audio = tvoice.render_voice_fused(p, cfg)
     (gp,) = torch.autograd.grad(audio.pow(2).mean(), p)
     torch.cuda.synchronize()

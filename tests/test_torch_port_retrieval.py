@@ -341,7 +341,7 @@ FUSED = tiny_overrides(**{  # the 60 x 80 size the fused render takes (its plain
 def test_cli_runs_on_cpu(tmp_path):
     cfg = load_config(overrides=FUSED + ["platform=cpu"])
     task = VicregPretrainTask(cfg)
-    assert task.fused_render
+    assert task.voices.fused_render
     CheckpointManager(str(tmp_path / "checkpoints" / "vicreg")).save(task.init_state(), 1)
     args = FUSED + [
         "platform=cpu", f"run_dir={tmp_path}", "retrieval.n_batches=2", "retrieval.test_batch_size=4",

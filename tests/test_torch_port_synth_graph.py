@@ -1,14 +1,18 @@
-"""The downstream train step's synth as a CUDA graph (``train/downstream.py``).
+"""The downstream train step's synth as a CUDA graph (``train/downstream.py``),
+the graph helper under it (``ops/launches.py:CapturedGraph``) and the voice
+source both training tasks hold (``synth/voice.py:VoiceSource``).
 
 On a CUDA device ``AudioToParamsTask.train_step`` runs its synth eagerly once,
 then captures it and replays the graph at every later step. The tests marked
 ``cuda`` hold the replay against the eager ``synthesize`` bit for bit, three
 graphed train steps against three eager ones, the test pass's audio against a
 later replay, and ``ops/render.py:launch_counts`` against the recorded launches;
-they skip here. On the CPU: the task stays eager and never captures, and the
-device-key draw the graph reads its batch number through equals the host draw
-at the downstream batch. This file imports neither JAX nor ``conftest``, so the
-card runs it:
+and the helper's replays of a render with dropout from a registered generator
+against the eager calls; they skip here. On the CPU: the task stays eager and
+never captures, the device-key draw the graph reads its batch number through
+equals the host draw at the downstream batch, and a pretraining and a downstream
+task draw the same voices. This file imports neither JAX nor ``conftest``, so
+the card runs it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_synth_graph.py
 """
@@ -19,8 +23,13 @@ import logging
 import pytest
 import torch
 
+from inverse_audio_synthesis_tpu_torch.models.layers import Dropout
+from inverse_audio_synthesis_tpu_torch.ops import launches
 from inverse_audio_synthesis_tpu_torch.ops import render as R
-from inverse_audio_synthesis_tpu_torch.synth.voice import sample_voice_params
+from inverse_audio_synthesis_tpu_torch.parallel.mesh import Mesh
+from inverse_audio_synthesis_tpu_torch.synth import SynthConfig
+from inverse_audio_synthesis_tpu_torch.synth.voice import VoiceSource, sample_voice_params
+from inverse_audio_synthesis_tpu_torch.train import pretrain
 from inverse_audio_synthesis_tpu_torch.train.downstream import AudioToParamsTask
 from inverse_audio_synthesis_tpu_torch.train.pretrain import VicregPretrainTask
 from inverse_audio_synthesis_tpu_torch.utils.config import load_config
@@ -57,7 +66,7 @@ def cuda_device():
 @pytest.mark.cuda
 def test_graphed_synth_is_the_eager_synth_bit_for_bit(cuda_device):
     (task,) = _tasks("embedding")
-    assert task.synth_path.startswith("cuda graph") and task.fused_render
+    assert task.synth_path.startswith("cuda graph") and task.voices.fused_render
     task._train_synth(3)  # the first runs eagerly
     assert task._synth_graph is None
     for n in BATCH_NUMS:
@@ -108,13 +117,13 @@ def test_test_step_audio_is_unchanged_by_a_later_train_step(cuda_device):
     torch.cuda.synchronize()
     assert task.synth_calls["replayed"] == 2
     assert torch.equal(true_audio, kept[0]) and torch.equal(pred_audio, kept[1])
-    assert not torch.equal(task._synth_graph.out[0][:, 0, :], true_audio)  # another batch there
+    assert not torch.equal(task._synth_graph.outputs[0][:, 0, :], true_audio)  # another batch there
 
 
 @pytest.mark.cuda
 def test_launch_counts_rise_by_the_recorded_count_at_each_replay(cuda_device):
     (task,) = _tasks("embedding")
-    R.reset_launch_counts()
+    launches.reset()
     task._train_synth(3)
     assert R.launch_counts == {"render_fwd": 1, "render_bwd": 0}  # the eager synth's K1
     for n in BATCH_NUMS:
@@ -123,6 +132,36 @@ def test_launch_counts_rise_by_the_recorded_count_at_each_replay(cuda_device):
         recorded = task._synth_graph.launches
         assert R.launch_counts == {k: before[k] + recorded[k] for k in before}, n
     assert R.launch_counts == {"render_fwd": 1 + len(BATCH_NUMS), "render_bwd": 0}
+
+
+@pytest.mark.cuda
+def test_captured_graph_replays_are_the_eager_calls(cuda_device):
+    """The helper on a render (one K1 launch) followed by dropout drawn from a
+    registered generator: each replay equals the eager call with a generator of
+    the same seed, bit for bit, and ``launch_counts`` rises by the recorded
+    launches at each replay."""
+    source = VoiceSource(SynthConfig(batch_size=4, buffer_size_seconds=1.0), cuda_device, slice(0, 4))
+    drop = Dropout(0.5)
+    gen_graph, gen_eager = (torch.Generator(device=cuda_device).manual_seed(11) for _ in range(2))
+
+    def fn(batch_num):
+        return drop(source(batch_num)[0])
+
+    drop.generator = torch.Generator(device=cuda_device).manual_seed(5)
+    fn(3)  # the render library is loaded outside the capture
+    drop.generator = gen_graph
+    graph = launches.CapturedGraph(fn, torch.zeros((), dtype=torch.int64, device=cuda_device), "a test graph",
+                                   (gen_graph,))
+    assert graph.launches == {**dict.fromkeys(graph.launches, 0), "render_fwd": 1}
+    drop.generator = gen_eager
+    for n in BATCH_NUMS:
+        before = dict(R.launch_counts)
+        out = graph.replay(n)
+        assert out is graph.outputs
+        assert R.launch_counts == {k: before[k] + graph.launches[k] for k in before}, n
+        want = fn(torch.tensor(n, device=cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), n
 
 
 # -- on the CPU ---------------------------------------------------------------------
@@ -146,15 +185,39 @@ def test_a_cpu_task_runs_its_synth_eagerly_and_logs_the_path(monkeypatch, caplog
 
 @pytest.mark.parametrize("seed", [0, 2**31 + 12345])
 def test_device_key_draw_matches_the_host_draw_at_the_downstream_batch(seed):
-    """The graph's draw (a tensor batch number and the task's ``_seed_key``)
+    """The graph's draw (a tensor batch number and the task's ``seed_key``)
     against the host draw, bit for bit, at batch 1024 (the shipped
     ``audio_to_params.batch_size``), and through the task's ``synthesize``."""
     (task,) = _tasks("param_mse", extra=["platform=cpu", f"seed={seed}"])
     shipped = dataclasses.replace(task.synth, batch_size=1024)
     for n in (0,) + BATCH_NUMS:
         want = sample_voice_params(n, shipped)
-        got = sample_voice_params(torch.tensor(n, dtype=torch.int64), shipped, seed_key=task._seed_key)
+        got = sample_voice_params(torch.tensor(n, dtype=torch.int64), shipped, seed_key=task.voices.seed_key)
         assert want.shape == (1024, 78) and torch.equal(got, want), n
     audio, params01 = task.synthesize(BATCH_NUMS[-1])
     audio_t, params01_t = task.synthesize(torch.tensor(BATCH_NUMS[-1]))
     assert torch.equal(params01_t, params01) and torch.equal(audio_t, audio)
+
+
+@pytest.mark.parametrize("rank", [None, 1])
+def test_pretraining_and_downstream_tasks_draw_the_same_voices(monkeypatch, rank):
+    """A pretraining and a downstream task of one seed and batch size give the
+    same bits for a batch number: the whole batch, and (``rank=1``) the second
+    half of it, as rank 1 of two data ranks holds it, with the whole batch's
+    parameters and noise rows of those positions."""
+    cpu = FUSED + ["platform=cpu", "audio_to_params.loss=param_mse"]
+    whole = VoiceSource(pretrain.synth_config_from_cfg(load_config(overrides=cpu), 8), "cpu", slice(0, 8))
+    if rank is not None:
+        monkeypatch.setattr(pretrain, "mesh_from_cfg", lambda cfg: Mesh(data=2, data_index=rank))
+    vicreg = VicregPretrainTask(load_config(overrides=cpu))
+    downstream = AudioToParamsTask(load_config(overrides=cpu), vicreg, vicreg.init_state())
+    rows = slice(0, 8) if rank is None else slice(4, 8)
+    assert vicreg.rows == downstream.rows == rows
+    assert torch.equal(vicreg.voices.noise, downstream.voices.noise)
+    assert torch.equal(vicreg.voices.noise, whole.noise[rows])
+    for n in BATCH_NUMS:
+        audio, params01 = vicreg.synthesize(n)
+        audio_d, params01_d = downstream.synthesize(n)
+        assert audio.shape == (rows.stop - rows.start, 1, 14400), n
+        assert torch.equal(params01_d, params01) and torch.equal(audio_d, audio), n
+        assert torch.equal(params01, sample_voice_params(n, whole.config)[rows]), n
