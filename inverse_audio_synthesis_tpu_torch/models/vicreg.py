@@ -99,6 +99,18 @@ def off_diagonal_sq_sum(c: torch.Tensor) -> torch.Tensor:
     return torch.sum(c**2) - torch.sum(torch.diagonal(c) ** 2)
 
 
+def cov_off_diag_sq_sum(op: torch.Tensor, denom) -> torch.Tensor:
+    """Σ_{i≠j} C_ij² of C = opᵀ op / denom for a centred [n, d] operand: the
+    whole sum through the n x n Gram matrix op opᵀ (‖XᵀX‖_F = ‖XXᵀ‖_F), less the
+    diagonal's, taken from the operand. The work is O(n² d) and autograd saves
+    nothing larger than n x d and n x n: every configuration's global batch is
+    far narrower than its width (16 or 64 rows of 8192), where the d x d
+    covariance would cost d/n times as much."""
+    c = (op @ op.T) / denom
+    diag = torch.sum(op * op, dim=0) / denom
+    return torch.sum(c**2) - torch.sum(diag**2)
+
+
 def vicreg_loss(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -115,7 +127,8 @@ def vicreg_loss(
     batch size; ``cov_operand_dtype`` (e.g. bf16) rounds the covariance operands
     to that type while the products accumulate in float32. Under a distributed
     ``mesh``, x and y are this rank's rows: the loss is taken over the global
-    batch, identically on every rank."""
+    batch, identically on every rank. The covariance term goes through the
+    n x n Gram matrix of the global rows (``cov_off_diag_sq_sum``)."""
     with torch.autocast(device_type=x.device.type, enabled=False):
         x, y = x.float(), y.float()
         if mesh is not None:
@@ -135,14 +148,7 @@ def vicreg_loss(
             yc = y.to(cov_operand_dtype).float()
         else:
             xc, yc = x, y
-        cov_x = (xc.T @ xc) / denom
-        cov_y = (yc.T @ yc) / denom
-
-        def off_diag_sq(c, op):
-            diag = torch.sum(op * op, dim=0) / denom
-            return torch.sum(c**2) - torch.sum(diag**2)
-
-        cov_loss = off_diag_sq(cov_x, xc) / embeddim + off_diag_sq(cov_y, yc) / embeddim
+        cov_loss = cov_off_diag_sq_sum(xc, denom) / embeddim + cov_off_diag_sq_sum(yc, denom) / embeddim
         loss = sim_coeff * repr_loss + std_coeff * std_loss + cov_coeff * cov_loss
     return loss, repr_loss, std_loss, cov_loss
 

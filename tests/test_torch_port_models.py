@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 from pathlib import Path
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from inverse_audio_synthesis_tpu.models.audioembed import AudioEmbedding as JAudioEmbedding
 from inverse_audio_synthesis_tpu.models.mobilenetv3 import MobileNetV3Small as JMobileNet
@@ -175,22 +177,76 @@ def test_jax_weights_round_trip():
         load_jax_variables(tm, bad)
 
 
-@pytest.mark.parametrize(
-    "cov_batch_size,bf16",
-    [(None, False), (16, False), (None, True)],
-)
-def test_vicreg_loss_matches_jax(cov_batch_size, bf16):
+# (n, d): 12 x 96 keeps the cases' first ids; 16 x 512 is a pretraining cell's
+# shape (n << d), 96 x 32 a batch wider than the embedding (n > d)
+_LOSS_CASES = [pytest.param(12, 96, c, b, id=f"{c}-{b}") for c, b in [(None, False), (16, False), (None, True)]] + [
+    pytest.param(n, d, c, b, id=f"{n}x{d}-{c}-{b}")
+    for n, d in [(16, 512), (96, 32)] for c in (None, 24) for b in (False, True)
+]
+
+
+@pytest.mark.parametrize("n,d,cov_batch_size,bf16", _LOSS_CASES)
+def test_vicreg_loss_matches_jax(n, d, cov_batch_size, bf16):
+    """The four terms at rtol 1e-5, and the loss's gradients w.r.t. x and y
+    against ``jax.grad``, with the batch narrower and wider than the embedding
+    (the JAX package sums the d x d covariance, the port the n x n Gram matrix
+    either way). Float32 operands: the gradients agree within 8.3e-7 of their
+    largest entry (measured over these cases), held at 2e-6. bf16 operands: the cast's backward rounds the
+    covariance gradient to bf16 in both packages, each from its own float32
+    value, so an entry may land a bf16 ulp (2^-7 relative) off; measured 7.8e-3
+    of the largest entry, held at 2^-6."""
     rng = np.random.RandomState(8)
-    x = rng.randn(12, 96).astype(np.float32)
-    y = (x + 0.3 * rng.randn(12, 96)).astype(np.float32)
-    ref = jvicreg_loss(
-        jnp.asarray(x), jnp.asarray(y), cov_batch_size=cov_batch_size,
-        cov_operand_dtype=jnp.bfloat16 if bf16 else None,
-    )
+    x = rng.randn(n, d).astype(np.float32)
+    y = (x + 0.3 * rng.randn(n, d)).astype(np.float32)
+
+    def jloss(a, b):
+        terms = jvicreg_loss(a, b, cov_batch_size=cov_batch_size, cov_operand_dtype=jnp.bfloat16 if bf16 else None)
+        return terms[0], terms
+
+    (_, ref), ref_grads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(jnp.asarray(x),
+                                                                                       jnp.asarray(y))
+    tx, ty = torch.from_numpy(x).requires_grad_(), torch.from_numpy(y).requires_grad_()
     got = vicreg_loss(
-        torch.from_numpy(x), torch.from_numpy(y), cov_batch_size=cov_batch_size,
+        tx, ty, cov_batch_size=cov_batch_size,
         cov_operand_dtype=torch.bfloat16 if bf16 else None,
     )
     # float32 reductions in another order; bf16 operands round the same way in both
     for r, g in zip(ref, got):
-        np.testing.assert_allclose(float(g), float(r), rtol=1e-5)
+        np.testing.assert_allclose(float(g.detach()), float(r), rtol=1e-5)
+    for r, g in zip(ref_grads, torch.autograd.grad(got[0], (tx, ty))):
+        assert _rel(np.asarray(r), g.numpy()) <= (2**-6 if bf16 else 2e-6)
+
+
+class _OutputSizes(TorchDispatchMode):
+    """The element count of every tensor each dispatched op returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.sizes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.sizes.append((str(func), max([t.numel() for t in tree_leaves(out) if isinstance(t, torch.Tensor)],
+                                          default=0)))
+        return out
+
+
+def _loss_output_sizes(n, d):
+    """(forward, backward) output sizes of the loss with bf16 operands at n x d."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(n, d, generator=gen).requires_grad_()
+    y = (x.detach() + 0.3 * torch.randn(n, d, generator=gen)).requires_grad_()
+    with _OutputSizes() as mode:
+        loss = vicreg_loss(x, y, cov_operand_dtype=torch.bfloat16)[0]
+        forward = len(mode.sizes)
+        torch.autograd.grad(loss, (x, y))
+    return mode.sizes[:forward], mode.sizes[forward:]
+
+
+def test_gram_form_creates_no_d_by_d_tensor():
+    """Forward and backward at 16 x 2048: no op returns d² elements or more; the
+    largest are the [n, d] operands and gradients, the products n x n."""
+    forward, backward = _loss_output_sizes(16, 2048)
+    assert ("aten.mm.default", 16 * 16) in forward, forward  # the recorder sees the Gram product
+    assert any("mm" in op for op, _ in backward), backward  # and the backward
+    assert max(size for _, size in forward + backward) == 16 * 2048 < 2048**2
