@@ -9,9 +9,10 @@ Layer map (module names follow the JAX package, so each has its counterpart):
                 the fused render (``ops/render.py``): two hand-written CUDA
                 kernels for Hopper, the forward K1 in ``csrc/render_fwd.cu`` and
                 its backward K2 in ``csrc/render_bwd.cu``.
-- ``models``  — towers (AudioEmbedding, ParamEmbed, MobileNetV3-Small, AST), the VICReg
-                projector and loss, the inverse-synthesis head, ``jax_weights``
-                to carry JAX weights across and the torchvision trunk import.
+- ``models``  — towers (AudioEmbedding, ParamEmbed, MobileNetV3-Small, AST,
+                HTS-AT), the VICReg projector and loss, the inverse-synthesis
+                head, ``jax_weights`` to carry JAX weights across and the
+                torchvision trunk import.
 - ``train``   — the VICReg pretraining task (with ``steps_per_dispatch`` as a
                 CUDA graph), the downstream inverse-synthesis task and its
                 grad-through-synth objectives, LARS/SGD and the schedule, the

@@ -72,6 +72,7 @@ from torch import nn
 
 from inverse_audio_synthesis_tpu_torch.models.ast import AST
 from inverse_audio_synthesis_tpu_torch.models.audioembed import AudioEmbedding
+from inverse_audio_synthesis_tpu_torch.models.htsat import HTSAT
 from inverse_audio_synthesis_tpu_torch.models.torch_import import (
     load_into_audio_embedding,
     load_vision_weights_file,
@@ -147,9 +148,10 @@ def audio_tower_name(cfg) -> str:
 
 def build_audio_tower(cfg, bn_dtype=torch.float32, generator: Optional[torch.Generator] = None) -> nn.Module:
     """The audio tower ``audio_tower.name`` selects: ``mobilenetv3_small`` (the PQMF
-    pseudo-image through MobileNetV3-Small, ``models/audioembed.py``) or ``ast``
+    pseudo-image through MobileNetV3-Small, ``models/audioembed.py``), ``ast``
     (the Kaldi fbank through the Audio Spectrogram Transformer of
-    ``audio_tower.ast``, ``models/ast.py``)."""
+    ``audio_tower.ast``, ``models/ast.py``) or ``htsat`` (the log-mel image
+    through the Swin stages of HTS-AT, ``audio_tower.htsat``, ``models/htsat.py``)."""
     name = audio_tower_name(cfg)
     if name == "mobilenetv3_small":
         return AudioEmbedding(dim=cfg.dim, image_size=(cfg.image.height, cfg.image.width),
@@ -157,7 +159,10 @@ def build_audio_tower(cfg, bn_dtype=torch.float32, generator: Optional[torch.Gen
     if name == "ast":
         return AST(dim=cfg.dim, sample_rate=cfg.torchsynth.rate, generator=generator,
                    **dict(cfg.audio_tower.get("ast") or {}))
-    raise ValueError(f"audio_tower.name={name!r}: the port builds mobilenetv3_small or ast")
+    if name == "htsat":
+        return HTSAT(dim=cfg.dim, sample_rate=cfg.torchsynth.rate, generator=generator,
+                     **dict(cfg.audio_tower.get("htsat") or {}))
+    raise ValueError(f"audio_tower.name={name!r}: the port builds mobilenetv3_small, ast or htsat")
 
 
 def describe_audio_tower(tower: nn.Module) -> str:
@@ -165,6 +170,11 @@ def describe_audio_tower(tower: nn.Module) -> str:
     if isinstance(tower, AST):
         backends = ", ".join(b.name for b in tower.sdpa_backends)
         return f"ast ({tower.tokens_per_voice} tokens a voice; SDPA backends {backends})"
+    if isinstance(tower, HTSAT):
+        backends = ", ".join(b.name for b in tower.sdpa_backends)
+        return (f"htsat (tokens a stage {'/'.join(map(str, tower.tokens_per_stage))}; windows a voice and "
+                f"block {'/'.join(map(str, tower.windows_per_voice))}; shifted blocks {tower.shifted_blocks} "
+                f"of {tower.total_blocks}; SDPA backends {backends})")
     return "mobilenetv3_small"
 
 
